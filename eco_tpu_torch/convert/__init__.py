@@ -1,0 +1,13 @@
+from eco_tpu_torch.convert.bridge import params_from_jax
+from eco_tpu_torch.convert.load import fold_bn
+from eco_tpu_torch.spec.transforms import merge_sibling_1x1_convs
+
+
+def optimize_for_inference(graph, params, state, *, fold: bool = True,
+                           merge: bool = True):
+    """Inference-graph optimization pipeline: sibling-1x1 merge + BN fold."""
+    if merge:
+        graph, params, state = merge_sibling_1x1_convs(graph, params, state)
+    if fold:
+        graph, params, state = fold_bn(graph, params, state)
+    return graph, params, state

@@ -1,0 +1,15 @@
+from eco_tpu_torch.ops.conv import conv_nd
+from eco_tpu_torch.ops.elementwise import concat_channels, dropout, eltwise, relu
+from eco_tpu_torch.ops.layout import (
+    caffe_reshape_dims,
+    fold_segments,
+    segment_consensus,
+    to_logical,
+    to_physical,
+    unfold_segments,
+)
+from eco_tpu_torch.ops.linear import inner_product
+from eco_tpu_torch.ops.loss import softmax
+from eco_tpu_torch.ops.norm import bn_inference, fold_scale_shift, scale_shift
+from eco_tpu_torch.ops.pool import global_avg_pool, pool_nd
+from eco_tpu_torch.ops.preprocess import preprocess_on_device

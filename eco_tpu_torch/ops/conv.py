@@ -1,0 +1,49 @@
+"""Channels-last ND convolution (twin of ``eco_tpu/ops/conv.py:conv_nd``).
+
+A contiguous ``(N, *spatial, C)`` blob viewed through ``movedim(-1, 1)`` is
+an NC* tensor in ``channels_last`` / ``channels_last_3d`` memory, so cuDNN
+reads it with no copy and writes its output in the same memory format; the
+result is moved back to ``(N, *spatial, C)``.  Weights are OIHW / OIDHW,
+``(C_out, C_in/groups, *k)``.
+
+Dtype policy, as in the reference: the weight is cast to ``x.dtype``, the
+convolution output is rounded to ``x.dtype``, and the bias is added in that
+type.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from eco_tpu.utils.shapes import normalize_spatial_param
+
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+
+
+def conv_nd(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor | None = None,
+    *,
+    stride=1,
+    pad=0,
+    dilation=1,
+    groups: int = 1,
+    transposed: bool = False,
+) -> torch.Tensor:
+    """``x``: (N, *spatial, C_in); ``w``: (C_out, C_in/groups, *k)."""
+    if transposed:
+        raise NotImplementedError("transposed convolution is not ported yet")
+    num_spatial = x.ndim - 2
+    stride = normalize_spatial_param(stride, num_spatial, default=1)
+    pad = normalize_spatial_param(pad, num_spatial, default=0)
+    dilation = normalize_spatial_param(dilation, num_spatial, default=1)
+    y = _CONV[num_spatial](
+        x.movedim(-1, 1), w.to(x.dtype), None,
+        stride=stride, padding=pad, dilation=dilation, groups=groups,
+    )
+    y = y.movedim(1, -1).contiguous()
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y

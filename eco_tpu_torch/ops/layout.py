@@ -1,0 +1,77 @@
+"""Segment-axis layout transforms on channels-last tensors.
+
+Twin of ``eco_tpu/ops/layout.py``.  Blobs are ``(N, *spatial, C)`` and
+contiguous, so ``unfold_segments`` is a free reshape: ``(N*S, H, W, C)`` ->
+``(N, S, H, W, C)`` *is* NDHWC with the segments as depth, and its
+``permute(0, 4, 1, 2, 3)`` is an NCDHW tensor in ``channels_last_3d`` memory,
+which is what cuDNN's 3D convolution reads without a copy.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def fold_segments(x: torch.Tensor) -> torch.Tensor:
+    """(N, S, *spatial, C) -> (N*S, *spatial, C): run segments through a 2D net."""
+    return x.reshape((-1,) + tuple(x.shape[2:]))
+
+
+def unfold_segments(x: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """(N*S, H, W, C) -> (N, S, H, W, C), a view of a contiguous input."""
+    return x.reshape((-1, num_segments) + tuple(x.shape[1:]))
+
+
+def segment_consensus(x: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Mean over segments in f32: (N*S, D) -> (N, D)."""
+    y = x.reshape((-1, num_segments) + tuple(x.shape[1:]))
+    return y.mean(dim=1, dtype=torch.float32).to(x.dtype)
+
+
+def to_logical(x: torch.Tensor) -> torch.Tensor:
+    """channels-last physical -> Caffe NCHW-style logical (ndim >= 3), a view."""
+    if x.ndim < 3:
+        return x
+    return x.movedim(-1, 1)
+
+
+def to_physical(x: torch.Tensor) -> torch.Tensor:
+    """Caffe NCHW-style logical -> contiguous channels-last physical (ndim >= 3)."""
+    if x.ndim < 3:
+        return x
+    return x.movedim(1, -1).contiguous()
+
+
+def caffe_reshape_dims(in_shape, dims, axis: int = 0, num_axes: int = -1):
+    """Resolve a Caffe ReshapeParameter shape (0 = copy, -1 = infer).
+
+    Copy of ``eco_tpu.ops.layout.caffe_reshape_dims`` (whose module imports
+    JAX); mirrors reshape_layer.cpp on *logical* shapes.
+    """
+    in_shape = tuple(int(d) for d in in_shape)
+    if axis != 0 or num_axes != -1:
+        end = len(in_shape) if num_axes == -1 else axis + num_axes
+        head, mid, tail = in_shape[:axis], in_shape[axis:end], in_shape[end:]
+        return head + caffe_reshape_dims(mid, dims) + tail
+    out = []
+    infer = None
+    for i, d in enumerate(dims):
+        if d == 0:
+            out.append(in_shape[i])
+        elif d == -1:
+            if infer is not None:
+                raise ValueError("at most one -1 dim")
+            infer = i
+            out.append(-1)
+        else:
+            out.append(int(d))
+    total = 1
+    for d in in_shape:
+        total *= d
+    if infer is not None:
+        known = 1
+        for d in out:
+            if d != -1:
+                known *= d
+        out[infer] = total // known
+    return tuple(out)

@@ -1,0 +1,100 @@
+"""Caffe-semantics ND pooling on channels-last tensors.
+
+Twin of ``eco_tpu/ops/pool.py:pool_nd`` and ``global_avg_pool``.  Caffe's
+ceil-mode output dims and last-window clip become an explicit asymmetric
+``(pad, pad_hi)`` padding computed statically by
+``eco_tpu.utils.shapes.caffe_pool_out_dim``; PyTorch's ``ceil_mode=True`` is
+not used, because it agrees with Caffe only on some shapes.
+
+- MAX pads with ``-inf`` (the integer minimum for integer types) and then
+  takes unpadded windows: ATen's ``max_pool{1,2,3}d`` for floats, a window
+  view and ``amax`` for integers, which ATen's pools do not take.
+- AVE sums the zero-padded windows in f32 and divides by the static
+  per-position divisor grid of ``caffe_avg_pool_divisors``, so padded cells
+  count in the denominator as in pooling_layer.cpp.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from eco_tpu.utils.shapes import (
+    caffe_avg_pool_divisors,
+    caffe_pool_out_dim,
+    normalize_spatial_param,
+)
+
+_MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+
+
+def _pad_spatial(x, pad_cfg, value):
+    """Pad the spatial axes of (N, *spatial, C) by [(lo, hi), ...] (negative
+    ``hi`` crops)."""
+    flat = [0, 0]  # channels (last axis) first: F.pad lists axes from the end
+    for lo, hi in reversed(pad_cfg):
+        flat += [lo, hi]
+    return F.pad(x, flat, value=value)
+
+
+def _windows(x, kernel, stride):
+    """(N, *spatial, C) -> strided view (N, *out, C, *kernel)."""
+    for axis, (k, s) in enumerate(zip(kernel, stride)):
+        x = x.unfold(1 + axis, k, s)
+    return x
+
+
+def pool_nd(
+    x: torch.Tensor,
+    *,
+    kernel=None,
+    stride=1,
+    pad=0,
+    mode: str = "max",
+    global_pooling: bool = False,
+) -> torch.Tensor:
+    """Pool over the spatial axes of a channels-last (N, *spatial, C) tensor."""
+    num_spatial = x.ndim - 2
+    spatial = tuple(x.shape[1:-1])
+    if global_pooling:
+        kernel = spatial
+        stride = (1,) * num_spatial
+        pad = (0,) * num_spatial
+    kernel = normalize_spatial_param(kernel, num_spatial)
+    stride = normalize_spatial_param(stride, num_spatial, default=1)
+    pad = normalize_spatial_param(pad, num_spatial, default=0)
+
+    pad_cfg = []
+    divisors = []
+    for size, k, s, p in zip(spatial, kernel, stride, pad):
+        _, pad_hi = caffe_pool_out_dim(size, k, s, p)
+        pad_cfg.append((p, pad_hi))
+        divisors.append(caffe_avg_pool_divisors(size, k, s, p))
+    window_dims = tuple(range(-num_spatial, 0))
+
+    mode = mode.lower()
+    if mode == "max":
+        if x.dtype.is_floating_point:
+            xp = _pad_spatial(x, pad_cfg, float("-inf"))
+            y = _MAX_POOL[num_spatial](xp.movedim(-1, 1), kernel, stride)
+            return y.movedim(1, -1).contiguous()
+        xp = _pad_spatial(x, pad_cfg, torch.iinfo(x.dtype).min)
+        return _windows(xp, kernel, stride).amax(dim=window_dims)
+    if mode in ("ave", "avg", "mean"):
+        xp = _pad_spatial(x.float(), pad_cfg, 0.0)
+        acc = _windows(xp, kernel, stride).sum(dim=window_dims)
+        div = np.ones([len(d) for d in divisors], dtype=np.float32)
+        for axis, d in enumerate(divisors):
+            shape = [1] * num_spatial
+            shape[axis] = len(d)
+            div = div * np.asarray(d, dtype=np.float32).reshape(shape)
+        div = torch.from_numpy(div.reshape(div.shape + (1,))).to(x.device)
+        return (acc / div).to(x.dtype)
+    raise ValueError(f"unknown pool mode {mode!r}")
+
+
+def global_avg_pool(x: torch.Tensor, keepdims: bool = False) -> torch.Tensor:
+    """Global spatial mean taken in f32 -- the (4,7,7) head pool."""
+    dims = tuple(range(1, x.ndim - 1))
+    return x.mean(dim=dims, keepdim=keepdims, dtype=torch.float32).to(x.dtype)

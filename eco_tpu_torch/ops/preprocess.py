@@ -1,0 +1,128 @@
+"""Device-side preprocessing of raw uint8 frames: crop, mirror, mean, cast.
+
+Twin of ``eco_tpu/ops/pallas/preprocess.py``.  The host ships raw uint8
+frames ``(N, S, H, W, 3)`` BGR with per-video crop offsets and mirror flags;
+one pass on the device produces model-ready clips ``(N, S, crop, crop, 3)``.
+
+- ``preprocess_on_device`` keeps the reference signature.  A CUDA tensor goes
+  to the hand-written kernel ``csrc/preprocess.cu`` (built with ``nvcc`` at
+  first use) or the call raises; a CPU tensor goes to the plain version.
+- ``crop_normalize_reference`` is that plain PyTorch version.
+- ``crop_normalize_launches`` counts kernel launches.
+
+Crop offsets are clamped into the frame, as ``lax.dynamic_slice`` clamps in
+the reference's portable twin (``convert/export_hlo.py:_crop_normalize_xla``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from eco_tpu_torch.ops import _build
+
+crop_normalize_launches = 0
+
+_OUT_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+@functools.cache
+def _kernel():
+    fn = _build.load("preprocess").eco_crop_normalize
+    fn.argtypes = (
+        [ctypes.c_void_p] * 5          # frames, h_off, w_off, mirror, out
+        + [ctypes.c_int] * 5           # videos, segments, height, width, crop
+        + [ctypes.c_float] * 3         # mean (B, G, R)
+        + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p]  # kind, scale, stream
+    )
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def build_kernel() -> None:
+    """Build and load the CUDA kernel now rather than at its first launch."""
+    _kernel()
+
+
+def crop_normalize_reference(frames_u8, h_off, w_off, mirror, *, crop: int,
+                             mean, out_dtype, act_scale: float | None = None):
+    """Plain PyTorch version: indexing for the crop, ``flip`` for the mirror."""
+    n, s, h, w, _ = frames_u8.shape
+    dev = frames_u8.device
+    ar = torch.arange(crop, device=dev)
+    h0 = torch.as_tensor(h_off, device=dev).long().clamp(0, h - crop)
+    w0 = torch.as_tensor(w_off, device=dev).long().clamp(0, w - crop)
+    vid = torch.arange(n, device=dev)[:, None, None]
+    rows = (h0[:, None] + ar)[:, :, None]
+    cols = (w0[:, None] + ar)[:, None, :]
+    win = frames_u8.permute(0, 2, 3, 1, 4)[vid, rows, cols]  # (N, crop, crop, S, 3)
+    y = win.permute(0, 3, 1, 2, 4).float() - torch.tensor(
+        mean, dtype=torch.float32, device=dev)
+    if act_scale is not None:
+        # A 0-d device tensor, not a Python float: CUDA's division by a CPU
+        # scalar multiplies by its reciprocal, which can differ in the last bit.
+        scale = torch.tensor(act_scale, dtype=torch.float32, device=dev)
+        y = torch.clamp(torch.round(y / scale), -127, 127)
+        out_dtype = torch.int8
+    flip = torch.as_tensor(mirror, device=dev).bool().view(n, 1, 1, 1, 1)
+    y = torch.where(flip, y.flip(3), y)
+    return y.to(out_dtype).contiguous()
+
+
+def _crop_normalize_cuda(frames_u8, h_off, w_off, mirror, *, crop: int,
+                         mean, out_dtype, act_scale: float | None):
+    global crop_normalize_launches
+    if frames_u8.dtype != torch.uint8 or frames_u8.ndim != 5 or frames_u8.shape[-1] != 3:
+        raise ValueError(
+            f"frames must be uint8 (N, S, H, W, 3), got {frames_u8.dtype} "
+            f"{tuple(frames_u8.shape)}")
+    if not frames_u8.is_contiguous():
+        raise ValueError("frames must be contiguous")
+    n, s, h, w, _ = frames_u8.shape
+    if not 0 < crop <= min(h, w):
+        raise ValueError(f"crop {crop} does not fit frames of {h}x{w}")
+    if out_dtype not in _OUT_KIND:
+        raise ValueError(f"unsupported out_dtype {out_dtype}")
+    if len(mean) != 3:
+        raise ValueError(f"mean must have 3 entries, got {mean!r}")
+    dev = frames_u8.device
+    per_video = []
+    for name, v, dtype in (("h_off", h_off, torch.int32),
+                           ("w_off", w_off, torch.int32),
+                           ("mirror", mirror, torch.uint8)):
+        v = torch.as_tensor(v, device=dev).to(dtype).contiguous()
+        if tuple(v.shape) != (n,):
+            raise ValueError(f"{name} must have shape ({n},), got {tuple(v.shape)}")
+        per_video.append(v)
+    out = torch.empty((n, s, crop, crop, 3), dtype=out_dtype, device=dev)
+    err = _kernel()(
+        frames_u8.data_ptr(), per_video[0].data_ptr(), per_video[1].data_ptr(),
+        per_video[2].data_ptr(), out.data_ptr(),
+        n, s, h, w, crop, float(mean[0]), float(mean[1]), float(mean[2]),
+        _OUT_KIND[out_dtype], float(act_scale or 1.0),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"crop_normalize kernel launch failed: CUDA error {err}")
+    crop_normalize_launches += 1
+    return out
+
+
+def preprocess_on_device(frames_u8, h_off, w_off, mirror, *, crop: int = 224,
+                         mean=(104.0, 117.0, 123.0), out_dtype=torch.bfloat16,
+                         act_scale: float | None = None):
+    """uint8 (N, S, H, W, 3) + per-video (h_off, w_off, mirror) -> clips.
+
+    ``act_scale`` set -> int8 clips ``clip(round((x - mean) / act_scale))``,
+    the input plane of int8-quantized graphs.
+    """
+    if act_scale is not None:
+        out_dtype = torch.int8
+    kw = dict(crop=crop, mean=mean, out_dtype=out_dtype, act_scale=act_scale)
+    if frames_u8.device.type == "cuda":
+        return _crop_normalize_cuda(frames_u8, h_off, w_off, mirror, **kw)
+    if frames_u8.device.type == "cpu":
+        return crop_normalize_reference(frames_u8, h_off, w_off, mirror, **kw)
+    raise ValueError(f"no crop_normalize for device {frames_u8.device}")

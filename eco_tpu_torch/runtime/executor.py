@@ -1,0 +1,377 @@
+"""GraphSpec -> inference ``Program`` on PyTorch.
+
+Twin of ``eco_tpu/runtime/executor.py:Program``, inference only.  The graph
+IR is the reference's own (``eco_tpu.spec.graph``); each layer type maps to
+an implementation over this package's ops.
+
+State contract, as in the reference:
+    params: {layer_name: {param_name: tensor}}
+    state:  {layer_name: {stat_name:  tensor}}   -- BN running stats
+    apply(params, state, inputs) -> (blobs, state)
+
+Blobs keep the reference's physical layout, channels-last ``(N, *spatial,
+C)`` and contiguous for rank >= 3, ``(N, D)`` for matrices.  Params are in
+PyTorch's layout: conv ``w`` is ``(C_out, C_in/g, *k)``, fc ``w`` is
+``(D_out, D_in)`` (``eco_tpu_torch.convert.bridge`` converts).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Mapping, Optional, Sequence
+
+import torch
+from torch import nn
+
+from eco_tpu.spec.graph import TEST, GraphSpec, LayerSpec
+from eco_tpu.utils.shapes import normalize_spatial_param
+from eco_tpu_torch import ops
+from eco_tpu_torch.runtime.init import fill
+
+# Layer types whose tops are host-provided (the data boundary).
+DATA_LAYER_TYPES = {
+    "videodata", "input", "imagedata", "data", "memorydata", "hdf5data",
+    "windowdata", "segdata",
+}
+
+
+class LayerImpl:
+    """One graph-layer type: param/state declaration + apply.
+
+    ``param_specs`` maps name -> (shape, filler); ``state_specs`` maps
+    name -> (shape, fill value); all are f32.
+    """
+
+    def param_specs(self, spec: LayerSpec, in_shapes) -> dict:
+        return {}
+
+    def state_specs(self, spec: LayerSpec, in_shapes) -> dict:
+        return {}
+
+    def apply(self, spec, params, state, inputs) -> list:
+        raise NotImplementedError
+
+
+class _Conv(LayerImpl):
+    def param_specs(self, spec, in_shapes):
+        in_shape = in_shapes[0]
+        k = spec.opt("kernel_size")
+        if k is None:
+            k = (spec.opt("kernel_h"), spec.opt("kernel_w"))
+        kernel = normalize_spatial_param(k, len(in_shape) - 2)
+        cout = int(spec.opt("num_output"))
+        groups = int(spec.opt("group", 1))
+        out = {
+            "w": ((cout, in_shape[-1] // groups) + tuple(kernel),
+                  spec.opt("weight_filler", {"type": "xavier"})),
+        }
+        if spec.opt("bias_term", True):
+            out["b"] = ((cout,), spec.opt("bias_filler", {"type": "constant"}))
+        return out
+
+    def apply(self, spec, params, state, inputs):
+        return [ops.conv_nd(
+            inputs[0], params["w"], params.get("b"),
+            stride=spec.opt("stride", 1), pad=spec.opt("pad", 0),
+            dilation=spec.opt("dilation", 1), groups=int(spec.opt("group", 1)),
+        )]
+
+
+class _InnerProduct(LayerImpl):
+    def param_specs(self, spec, in_shapes):
+        din = math.prod(in_shapes[0][1:])
+        dout = int(spec.opt("num_output"))
+        out = {"w": ((dout, din), spec.opt("weight_filler", {"type": "xavier"}))}
+        if spec.opt("bias_term", True):
+            out["b"] = ((dout,), spec.opt("bias_filler", {"type": "constant"}))
+        return out
+
+    def apply(self, spec, params, state, inputs):
+        x = inputs[0]
+        if x.ndim > 2:
+            # Caffe flattens trailing axes in *logical* order.
+            x = ops.to_logical(x).reshape(x.shape[0], -1)
+        return [ops.inner_product(x, params["w"], params.get("b"))]
+
+
+class _BN(LayerImpl):
+    """Inference BN: running statistics, frozen or not."""
+
+    def param_specs(self, spec, in_shapes):
+        c = in_shapes[0][-1]
+        return {
+            "gamma": ((c,), spec.opt("slope_filler", {"type": "constant", "value": 1.0})),
+            "beta": ((c,), spec.opt("bias_filler", {"type": "constant", "value": 0.0})),
+        }
+
+    def state_specs(self, spec, in_shapes):
+        c = in_shapes[0][-1]
+        return {"mean": ((c,), 0.0), "var": ((c,), 1.0)}
+
+    def apply(self, spec, params, state, inputs):
+        return [ops.bn_inference(
+            inputs[0], params["gamma"], params["beta"], state["mean"],
+            state["var"], eps=float(spec.opt("eps", 1e-5)),
+        )]
+
+
+class _Scale(LayerImpl):
+    """Per-channel scale (+ optional shift): what fold_bn leaves for a BN it
+    cannot fold."""
+
+    def param_specs(self, spec, in_shapes):
+        c = in_shapes[0][-1]
+        out = {"scale": ((c,), spec.opt("filler", {"type": "constant", "value": 1.0}))}
+        if spec.opt("bias_term", True):
+            out["shift"] = ((c,), {"type": "constant", "value": 0.0})
+        return out
+
+    def apply(self, spec, params, state, inputs):
+        return [ops.scale_shift(inputs[0], params["scale"], params.get("shift", 0.0))]
+
+
+class _ReLU(LayerImpl):
+    def apply(self, spec, params, state, inputs):
+        return [ops.relu(inputs[0], float(spec.opt("negative_slope", 0.0)))]
+
+
+class _Pooling(LayerImpl):
+    def apply(self, spec, params, state, inputs):
+        k = spec.opt("kernel_size")
+        if k is None and spec.opt("kernel_h") is not None:
+            k = (int(spec.opt("kernel_h")), int(spec.opt("kernel_w")))
+        s = spec.opt("stride", 1)
+        if spec.opt("stride_h") is not None:
+            s = (int(spec.opt("stride_h")), int(spec.opt("stride_w")))
+        p = spec.opt("pad", 0)
+        if spec.opt("pad_h") is not None:
+            p = (int(spec.opt("pad_h")), int(spec.opt("pad_w")))
+        return [ops.pool_nd(
+            inputs[0], kernel=k, stride=s, pad=p,
+            mode=str(spec.opt("pool", "max")),
+            global_pooling=bool(spec.opt("global_pooling", False)),
+        )]
+
+
+class _Dropout(LayerImpl):
+    def apply(self, spec, params, state, inputs):
+        return [ops.dropout(inputs[0], float(spec.opt("dropout_ratio", 0.5)))]
+
+
+class _Eltwise(LayerImpl):
+    def apply(self, spec, params, state, inputs):
+        return [ops.eltwise(inputs, spec.opt("operation", "sum"), spec.opt("coeffs"))]
+
+
+class _Concat(LayerImpl):
+    def apply(self, spec, params, state, inputs):
+        # concat_dim is the V0/V1 legacy spelling of axis
+        axis = int(spec.opt("axis", spec.opt("concat_dim", 1)))
+        if inputs[0].ndim <= 2:
+            return [torch.cat(inputs, dim=axis if axis != 1 else -1)]
+        if axis == 1:
+            return [ops.concat_channels(inputs)]
+        # Generic axis: bridge through logical layout.
+        logical = [ops.to_logical(x) for x in inputs]
+        return [ops.to_physical(torch.cat(logical, dim=axis))]
+
+
+class _Slice(LayerImpl):
+    def apply(self, spec, params, state, inputs):
+        x = ops.to_logical(inputs[0])
+        axis = int(spec.opt("axis", 1))
+        points = spec.opt("slice_point")
+        n_out = len(spec.tops)
+        if points is None:
+            step = x.shape[axis] // n_out
+            points = [step * i for i in range(1, n_out)]
+        elif isinstance(points, (int, float)):
+            points = [int(points)]  # single slice_point parses as a scalar
+        pieces = torch.tensor_split(x, [int(p) for p in points], dim=axis)
+        return [ops.to_physical(p) for p in pieces]
+
+
+class _Reshape(LayerImpl):
+    def apply(self, spec, params, state, inputs):
+        x = ops.to_logical(inputs[0])
+        dims = ops.caffe_reshape_dims(
+            x.shape, spec.opt("dims"),
+            axis=int(spec.opt("axis", 0)), num_axes=int(spec.opt("num_axes", -1)),
+        )
+        return [ops.to_physical(x.reshape(dims))]
+
+
+class _Flatten(LayerImpl):
+    def apply(self, spec, params, state, inputs):
+        x = ops.to_logical(inputs[0])
+        return [x.reshape(x.shape[0], -1)]
+
+
+class _FoldSegments(LayerImpl):
+    def apply(self, spec, params, state, inputs):
+        return [ops.fold_segments(inputs[0])]
+
+
+class _UnfoldSegments(LayerImpl):
+    def apply(self, spec, params, state, inputs):
+        return [ops.unfold_segments(inputs[0], int(spec.opt("num_segments")))]
+
+
+class _GlobalAvgPool(LayerImpl):
+    def apply(self, spec, params, state, inputs):
+        return [ops.global_avg_pool(inputs[0])]
+
+
+class _Softmax(LayerImpl):
+    def apply(self, spec, params, state, inputs):
+        return [ops.softmax(inputs[0])]
+
+
+class _Split(LayerImpl):
+    """Fan-out: one bottom copied to N tops, free in a functional executor."""
+
+    def apply(self, spec, params, state, inputs):
+        return [inputs[0]] * len(spec.tops)
+
+
+class _Identity(LayerImpl):
+    def apply(self, spec, params, state, inputs):
+        return [inputs[0]]
+
+
+IMPLS: dict[str, LayerImpl] = {
+    "convolution": _Conv(),
+    "innerproduct": _InnerProduct(),
+    "bn": _BN(),
+    "scale": _Scale(),
+    "relu": _ReLU(),
+    "pooling": _Pooling(),
+    "dropout": _Dropout(),
+    "eltwise": _Eltwise(),
+    "concat": _Concat(),
+    "slice": _Slice(),
+    "reshape": _Reshape(),
+    "flatten": _Flatten(),
+    "fold_segments": _FoldSegments(),
+    "unfold_segments": _UnfoldSegments(),
+    "global_avg_pool": _GlobalAvgPool(),
+    "softmax": _Softmax(),
+    "split": _Split(),
+    "identity": _Identity(),
+}
+
+
+def get_impl(layer_type: str) -> LayerImpl:
+    key = layer_type.lower().replace("_", "")
+    for cand in (layer_type.lower(), key):
+        if cand in IMPLS:
+            return IMPLS[cand]
+    raise KeyError(f"no PyTorch implementation for layer type {layer_type!r}")
+
+
+class Program(nn.Module):
+    """The TEST-phase executable view of a GraphSpec on one device.
+
+    ``init`` builds (params, state) by propagating shapes on the ``meta``
+    device (no real compute) and filling each param from a
+    ``torch.Generator``; ``apply`` runs the graph eagerly.
+    """
+
+    def __init__(self, graph: GraphSpec, *, compute_dtype=None, device="cpu"):
+        super().__init__()
+        self.graph = graph.filtered(TEST)
+        self.compute_dtype = compute_dtype
+        self.device = torch.device(device)
+        data_layers = [
+            l for l in self.graph.layers if l.type.lower() in DATA_LAYER_TYPES
+        ]
+        self.exec_layers = [
+            l for l in self.graph.layers if l.type.lower() not in DATA_LAYER_TYPES
+        ]
+        self._impls = [get_impl(l.type) for l in self.exec_layers]
+        if any(ps.name for l in self.exec_layers for ps in l.params):
+            raise NotImplementedError("cross-layer param sharing is not ported yet")
+        self.input_names = list(self.graph.inputs) + [
+            t for l in data_layers for t in l.tops
+        ]
+        # in-place layers (top == bottom) do not consume their blob
+        consumed = {
+            b for l in self.exec_layers for b in l.bottoms if b not in l.tops
+        }
+        produced = [t for l in self.exec_layers for t in l.tops]
+        self.output_names = [t for t in dict.fromkeys(produced) if t not in consumed]
+
+    def cast_input(self, v: torch.Tensor) -> torch.Tensor:
+        """Float feature tensors (ndim >= 3) go to compute_dtype; labels and
+        scalars keep their dtype (the reference's one input-cast policy)."""
+        if self.compute_dtype is not None and v.is_floating_point() and v.ndim >= 3:
+            v = v.to(self.compute_dtype)
+        return v
+
+    def init(self, generator: torch.Generator, sample_shapes: Mapping[str, Sequence[int]]):
+        """Build (params, state) on ``self.device`` from input shapes."""
+        missing = [n for n in self.input_names if n not in sample_shapes]
+        if missing:
+            raise ValueError(f"sample_shapes missing {missing}")
+        blobs = {
+            k: self.cast_input(torch.empty(tuple(s), device="meta"))
+            for k, s in sample_shapes.items()
+        }
+        params: dict = {}
+        state: dict = {}
+        for layer, impl in zip(self.exec_layers, self._impls):
+            ins = [blobs[b] for b in layer.bottoms]
+            in_shapes = [tuple(x.shape) for x in ins]
+            lp = {
+                name: fill(generator, shape, torch.float32, filler).to(self.device)
+                for name, (shape, filler) in impl.param_specs(layer, in_shapes).items()
+            }
+            ls = {
+                name: torch.full(shape, value, dtype=torch.float32, device=self.device)
+                for name, (shape, value) in impl.state_specs(layer, in_shapes).items()
+            }
+            if lp:
+                params[layer.name] = lp
+            if ls:
+                state[layer.name] = ls
+            outs = impl.apply(
+                layer,
+                {k: v.to("meta") for k, v in lp.items()},
+                {k: v.to("meta") for k, v in ls.items()},
+                ins,
+            )
+            for t, o in zip(layer.tops, outs):
+                blobs[t] = o
+        return params, state
+
+    def apply(self, params: Mapping, state: Mapping, inputs: Mapping[str, Any],
+              *, capture: Optional[Sequence[str]] = None):
+        """Run the graph.  Returns (outputs, state): ``outputs`` maps every
+        dangling top and every ``capture``d blob to its value; inference
+        leaves ``state`` as it is."""
+        blobs: dict[str, torch.Tensor] = {}
+        for k, v in inputs.items():
+            v = torch.as_tensor(v, device=self.device)
+            declared = self.graph.inputs.get(k)
+            if declared is not None and tuple(v.shape[1:]) != tuple(declared[1:]):
+                # batch (axis 0) is free; a wrong segment count would otherwise
+                # be silently reinterpreted by the segment reshapes
+                raise ValueError(
+                    f"input {k!r}: shape {tuple(v.shape)} does not match declared "
+                    f"{declared} (non-batch dims must agree)"
+                )
+            blobs[k] = self.cast_input(v)
+        for layer, impl in zip(self.exec_layers, self._impls):
+            outs = impl.apply(
+                layer, params.get(layer.name, {}), state.get(layer.name, {}),
+                [blobs[b] for b in layer.bottoms],
+            )
+            for t, o in zip(layer.tops, outs):
+                blobs[t] = o
+        wanted = list(self.output_names) + [
+            c for c in (capture or ()) if c not in self.output_names
+        ]
+        return {k: blobs[k] for k in wanted}, state
+
+    def forward(self, params, state, inputs, *, capture=None):
+        return self.apply(params, state, inputs, capture=capture)

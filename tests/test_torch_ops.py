@@ -1,0 +1,254 @@
+"""eco_tpu_torch.ops against their eco_tpu.ops twins, on the same numpy inputs.
+
+Tolerances: f32 convolutions, matmuls and sums run in another order in XLA's
+CPU kernels than in ATen's, so they agree to a few f32 ulps of the largest
+term (rtol/atol 1e-5); max pools, layout moves, concat and relu select
+existing values and must agree exactly.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from eco_tpu import ops as jops
+from eco_tpu_torch import ops
+
+RTOL = ATOL = 1e-5
+
+
+def _rng(seed=0):
+    return np.random.default_rng(seed)
+
+
+def _close(got, want, rtol=RTOL, atol=ATOL):
+    got = got.float().numpy() if torch.is_tensor(got) else np.asarray(got)
+    np.testing.assert_allclose(got, np.asarray(want, np.float32), rtol=rtol, atol=atol)
+
+
+# -- convolution -------------------------------------------------------------
+
+CONV_CASES = {
+    "2d_k3_p1": dict(x=(2, 9, 11, 6), k=(3, 3), cout=8, stride=1, pad=1),
+    "2d_stem_k7_s2_p3": dict(x=(2, 16, 16, 3), k=(7, 7), cout=8, stride=2, pad=3),
+    "2d_1x1": dict(x=(2, 7, 7, 8), k=(1, 1), cout=12, stride=1, pad=0),
+    "2d_dilation_groups": dict(x=(2, 12, 10, 8), k=(3, 3), cout=6, stride=1, pad=2,
+                               dilation=2, groups=2),
+    "2d_per_axis": dict(x=(2, 8, 9, 4), k=(1, 3), cout=5, stride=(1, 2), pad=(0, 1)),
+    "3d_k3_s1": dict(x=(2, 4, 7, 7, 6), k=(3, 3, 3), cout=8, stride=1, pad=1),
+    "3d_k3_s2": dict(x=(2, 4, 7, 7, 6), k=(3, 3, 3), cout=8, stride=2, pad=1),
+    "3d_no_bias": dict(x=(1, 5, 6, 6, 4), k=(3, 3, 3), cout=4, stride=(1, 2, 2),
+                       pad=(1, 0, 1), bias=False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CONV_CASES))
+def test_conv_nd_matches_jax(case):
+    c = dict(CONV_CASES[case])
+    rng = _rng(1)
+    groups = c.get("groups", 1)
+    x = rng.standard_normal(c["x"]).astype(np.float32)
+    w = rng.standard_normal(c["k"] + (c["x"][-1] // groups, c["cout"])).astype(np.float32)
+    b = rng.standard_normal(c["cout"]).astype(np.float32) if c.get("bias", True) else None
+    kw = dict(stride=c["stride"], pad=c["pad"], dilation=c.get("dilation", 1), groups=groups)
+    want = jops.conv_nd(jnp.asarray(x), jnp.asarray(w),
+                        None if b is None else jnp.asarray(b), **kw)
+    nsp = len(c["k"])
+    w_t = np.transpose(w, (nsp + 1, nsp) + tuple(range(nsp)))  # -> (Cout, Cin/g, *k)
+    got = ops.conv_nd(torch.from_numpy(x), torch.from_numpy(np.ascontiguousarray(w_t)),
+                      None if b is None else torch.from_numpy(b), **kw)
+    assert got.is_contiguous() and tuple(got.shape) == want.shape
+    _close(got, want)
+
+
+def test_conv_bf16_policy_matches_jax():
+    """bf16 in: weight cast to bf16, output rounded to bf16, bias added in
+    bf16.  Both sides accumulate in f32 and round once per step, so they may
+    differ by one bf16 ulp (2^-8 relative) where the f32 sums straddle a
+    rounding boundary."""
+    rng = _rng(2)
+    x = rng.standard_normal((2, 8, 8, 16)).astype(np.float32)
+    w = rng.standard_normal((3, 3, 16, 8)).astype(np.float32)
+    b = rng.standard_normal(8).astype(np.float32)
+    want = jops.conv_nd(jnp.asarray(x, jnp.bfloat16), jnp.asarray(w), jnp.asarray(b), pad=1)
+    got = ops.conv_nd(torch.from_numpy(x).bfloat16(),
+                      torch.from_numpy(np.ascontiguousarray(w.transpose(3, 2, 0, 1))),
+                      torch.from_numpy(b), pad=1)
+    assert got.dtype == torch.bfloat16
+    _close(got, np.asarray(want, np.float32), rtol=2 ** -7, atol=2 ** -7)
+
+
+def test_transposed_conv_not_ported():
+    with pytest.raises(NotImplementedError):
+        ops.conv_nd(torch.zeros(1, 4, 4, 2), torch.zeros(2, 2, 3, 3), transposed=True)
+
+
+# -- pooling -----------------------------------------------------------------
+
+POOL_CASES = {
+    "max_112_to_56_ceil": dict(x=(1, 112, 112, 4), k=3, s=2, p=0, mode="max"),
+    "max_odd_27": dict(x=(2, 27, 27, 3), k=3, s=2, p=0, mode="max"),
+    "max_s1_p1": dict(x=(2, 9, 9, 3), k=3, s=1, p=1, mode="max"),
+    "max_3d": dict(x=(2, 4, 7, 7, 3), k=(2, 3, 3), s=(2, 2, 2), p=0, mode="max"),
+    "ave_s1_p1_odd": dict(x=(2, 9, 7, 3), k=3, s=1, p=1, mode="ave"),
+    "ave_s2_p1_odd": dict(x=(2, 11, 9, 3), k=3, s=2, p=1, mode="ave"),
+    "ave_clip_last_window": dict(x=(2, 5, 5, 3), k=2, s=2, p=1, mode="ave"),
+    "ave_3d_global": dict(x=(2, 4, 7, 7, 3), k=None, s=1, p=0, mode="ave", glob=True),
+    "max_int8": dict(x=(2, 9, 9, 3), k=3, s=2, p=1, mode="max", dtype="int8"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(POOL_CASES))
+def test_pool_nd_matches_jax(case):
+    c = POOL_CASES[case]
+    rng = _rng(3)
+    if c.get("dtype") == "int8":
+        x = rng.integers(-128, 128, c["x"], dtype=np.int8)
+    else:
+        x = rng.standard_normal(c["x"]).astype(np.float32)
+    kw = dict(kernel=c["k"], stride=c["s"], pad=c["p"], mode=c["mode"],
+              global_pooling=c.get("glob", False))
+    want = np.asarray(jops.pool_nd(jnp.asarray(x), **kw))
+    got = ops.pool_nd(torch.from_numpy(x), **kw)
+    assert got.is_contiguous() and tuple(got.shape) == want.shape
+    assert got.dtype == torch.from_numpy(x).dtype
+    if c["mode"] == "max":
+        np.testing.assert_array_equal(got.numpy(), want)
+    else:
+        _close(got, want)
+
+
+@pytest.mark.parametrize("shape", [(2, 7, 7, 8), (2, 4, 7, 7, 8)])
+def test_global_avg_pool_matches_jax(shape):
+    x = _rng(4).standard_normal(shape).astype(np.float32)
+    want = jops.global_avg_pool(jnp.asarray(x))
+    _close(ops.global_avg_pool(torch.from_numpy(x)), want)
+
+
+# -- norm ----------------------------------------------------------------------
+
+
+def _bn_inputs(c=6):
+    rng = _rng(5)
+    return (
+        rng.standard_normal((2, 5, 5, c)).astype(np.float32),
+        (1 + 0.2 * rng.standard_normal(c)).astype(np.float32),
+        (0.1 * rng.standard_normal(c)).astype(np.float32),
+        (0.3 * rng.standard_normal(c)).astype(np.float32),
+        (0.5 + rng.random(c)).astype(np.float32),
+    )
+
+
+@pytest.mark.parametrize("fn", ["bn_inference", "scale_shift", "fold_scale_shift"])
+def test_norm_matches_jax(fn):
+    x, g, b, m, v = _bn_inputs()
+    t = [torch.from_numpy(a) for a in (x, g, b, m, v)]
+    j = [jnp.asarray(a) for a in (x, g, b, m, v)]
+    if fn == "bn_inference":
+        _close(ops.bn_inference(*t), jops.bn_inference(*j))
+    elif fn == "scale_shift":
+        _close(ops.scale_shift(t[0], t[1], t[2]), jops.scale_shift(j[0], j[1], j[2]))
+    else:
+        for got, want in zip(ops.fold_scale_shift(*t[1:]), jops.fold_scale_shift(*j[1:])):
+            _close(got, want, rtol=1e-6, atol=1e-6)
+
+
+# -- elementwise, fc, softmax --------------------------------------------------
+
+
+@pytest.mark.parametrize("slope", [0.0, 0.1])
+def test_relu_matches_jax(slope):
+    x = _rng(6).standard_normal((2, 5, 5, 4)).astype(np.float32)
+    want = np.asarray(jops.relu(jnp.asarray(x), slope))
+    np.testing.assert_array_equal(ops.relu(torch.from_numpy(x), slope).numpy(), want)
+
+
+def test_dropout_is_identity_at_test():
+    x = torch.from_numpy(_rng(7).standard_normal((3, 4)).astype(np.float32))
+    assert ops.dropout(x, 0.5) is x
+    with pytest.raises(NotImplementedError):
+        ops.dropout(x, 0.5, train=True)
+
+
+@pytest.mark.parametrize("op,coeffs", [
+    ("sum", None), ("sum", (0.5, -2.0, 1.0)), ("prod", None), ("max", None),
+])
+def test_eltwise_matches_jax(op, coeffs):
+    xs = [_rng(8 + i).standard_normal((2, 3, 3, 4)).astype(np.float32) for i in range(3)]
+    want = jops.eltwise([jnp.asarray(x) for x in xs], op, coeffs)
+    _close(ops.eltwise([torch.from_numpy(x) for x in xs], op, coeffs), want)
+
+
+def test_concat_channels_matches_jax():
+    xs = [_rng(11 + i).standard_normal((2, 3, 3, c)).astype(np.float32) for i, c in
+          enumerate((2, 5, 3))]
+    want = np.asarray(jops.concat_channels([jnp.asarray(x) for x in xs]))
+    np.testing.assert_array_equal(
+        ops.concat_channels([torch.from_numpy(x) for x in xs]).numpy(), want)
+
+
+@pytest.mark.parametrize("bias", [True, False])
+def test_inner_product_matches_jax(bias):
+    rng = _rng(12)
+    x = rng.standard_normal((3, 20)).astype(np.float32)
+    w = rng.standard_normal((20, 7)).astype(np.float32)  # reference (D_in, D_out)
+    b = rng.standard_normal(7).astype(np.float32) if bias else None
+    want = jops.inner_product(jnp.asarray(x), jnp.asarray(w),
+                              None if b is None else jnp.asarray(b))
+    got = ops.inner_product(torch.from_numpy(x), torch.from_numpy(np.ascontiguousarray(w.T)),
+                            None if b is None else torch.from_numpy(b))
+    _close(got, want)
+
+
+def test_softmax_matches_jax():
+    x = (5 * _rng(13).standard_normal((4, 10))).astype(np.float32)
+    _close(ops.softmax(torch.from_numpy(x)), jops.softmax(jnp.asarray(x)), rtol=1e-6, atol=1e-7)
+
+
+# -- layout ---------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("fn", ["fold", "unfold", "consensus", "to_logical", "to_physical"])
+def test_layout_matches_jax(fn):
+    rng = _rng(14)
+    if fn == "fold":
+        x = rng.standard_normal((2, 3, 4, 5, 6)).astype(np.float32)
+        got, want = ops.fold_segments(torch.from_numpy(x)), jops.fold_segments(jnp.asarray(x))
+    elif fn == "unfold":
+        x = rng.standard_normal((6, 4, 5, 6)).astype(np.float32)
+        got = ops.unfold_segments(torch.from_numpy(x), 3)
+        want = jops.unfold_segments(jnp.asarray(x), 3)
+    elif fn == "consensus":
+        x = rng.standard_normal((6, 8)).astype(np.float32)
+        got = ops.segment_consensus(torch.from_numpy(x), 3)
+        want = jops.segment_consensus(jnp.asarray(x), 3)
+    elif fn == "to_logical":
+        x = rng.standard_normal((2, 4, 5, 6)).astype(np.float32)
+        got, want = ops.to_logical(torch.from_numpy(x)), jops.to_logical(jnp.asarray(x))
+    else:
+        x = rng.standard_normal((2, 6, 4, 5)).astype(np.float32)
+        got, want = ops.to_physical(torch.from_numpy(x)), jops.to_physical(jnp.asarray(x))
+        assert got.is_contiguous()
+    _close(got, want, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("in_shape,dims,axis,num_axes", [
+    ((2, 3, 4, 5), (0, -1), 0, -1),
+    ((2, 3, 4, 5), (0, 0, 20), 0, -1),
+    ((2, 3, 4, 5), (-1, 2, 2), 2, 1),
+    ((8, 12), (2, 4, 12), 0, 1),
+])
+def test_caffe_reshape_dims_matches_jax(in_shape, dims, axis, num_axes):
+    assert ops.caffe_reshape_dims(in_shape, dims, axis, num_axes) == \
+        jops.caffe_reshape_dims(in_shape, dims, axis, num_axes)
+
+
+def test_unfold_segments_is_a_channels_last_3d_view():
+    """r2Dto3D is free: the unfold is a view of the trunk's output, and the
+    NCDHW view cuDNN is handed is already channels_last_3d (no copy)."""
+    x = torch.randn(2 * 4, 7, 7, 6)
+    y = ops.unfold_segments(x, 4)
+    assert y.data_ptr() == x.data_ptr() and y._base is x
+    assert tuple(y.shape) == (2, 4, 7, 7, 6)
+    ncdhw = y.permute(0, 4, 1, 2, 3)
+    assert ncdhw.is_contiguous(memory_format=torch.channels_last_3d)

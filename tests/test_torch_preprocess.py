@@ -1,0 +1,102 @@
+"""The uint8 crop/normalize kernel's plain version against the JAX kernel.
+
+Every output value is an integer in [-123, 151] (exact in bf16), and the
+int8 path divides and rounds half to even on both sides, so the plain
+PyTorch version must equal the Pallas kernel (run in interpret mode, as its
+own tests run it on the CPU) and the portable XLA twin bit for bit.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from eco_tpu.convert.export_hlo import _crop_normalize_xla
+from eco_tpu.ops.pallas.preprocess import preprocess_on_device as jax_preprocess
+from eco_tpu_torch.ops import _build, preprocess
+
+N, S, H, W, CROP = 4, 2, 20, 24, 16
+MEAN = (104.0, 117.0, 123.0)
+# offsets at 0 and at H-crop / W-crop, each with mirror off and on
+H_OFF = np.array([0, 0, H - CROP, H - CROP], np.int32)
+W_OFF = np.array([0, 0, W - CROP, W - CROP], np.int32)
+MIRROR = np.array([False, True, False, True])
+
+CASES = {
+    "f32": (jnp.float32, torch.float32, None),
+    "bf16": (jnp.bfloat16, torch.bfloat16, None),
+    "int8_scale_0.37": (jnp.int8, torch.int8, 0.37),
+    "int8_scale_2_half_ties": (jnp.int8, torch.int8, 2.0),
+}
+
+
+def _frames(seed=0):
+    return np.random.default_rng(seed).integers(0, 256, (N, S, H, W, 3), dtype=np.uint8)
+
+
+@pytest.mark.parametrize("oracle", ["pallas_interpret", "xla_twin"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_version_is_bit_exact_with_jax(case, oracle):
+    jdt, tdt, act_scale = CASES[case]
+    frames = _frames()
+    j_args = (jnp.asarray(frames), jnp.asarray(H_OFF), jnp.asarray(W_OFF), jnp.asarray(MIRROR))
+    if oracle == "pallas_interpret":
+        want = jax_preprocess(*j_args, crop=CROP, mean=MEAN, out_dtype=jdt,
+                              interpret=True, act_scale=act_scale)
+    else:
+        want = _crop_normalize_xla(*j_args, crop=CROP, mean=MEAN, out_dtype=jdt,
+                                   act_scale=act_scale)
+    got = preprocess.preprocess_on_device(
+        torch.from_numpy(frames), torch.from_numpy(H_OFF), torch.from_numpy(W_OFF),
+        torch.from_numpy(MIRROR), crop=CROP, mean=MEAN, out_dtype=tdt,
+        act_scale=act_scale)
+    assert got.dtype == tdt and tuple(got.shape) == (N, S, CROP, CROP, 3)
+    assert got.is_contiguous()
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(want, np.float32))
+
+
+def test_cpu_tensor_uses_plain_version_without_building(monkeypatch):
+    def no_build(name):
+        raise AssertionError(f"CPU call tried to build {name}")
+
+    monkeypatch.setattr(_build, "build", no_build)
+    monkeypatch.setattr(_build, "load", no_build)
+    before = preprocess.crop_normalize_launches
+    args = (torch.from_numpy(_frames(1)), torch.from_numpy(H_OFF),
+            torch.from_numpy(W_OFF), torch.from_numpy(MIRROR))
+    got = preprocess.preprocess_on_device(*args, crop=CROP, mean=MEAN)
+    want = preprocess.crop_normalize_reference(*args, crop=CROP, mean=MEAN,
+                                               out_dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16  # the reference's default clip type
+    assert torch.equal(got, want)
+    assert preprocess.crop_normalize_launches == before
+
+
+def test_build_without_nvcc_raises_a_clear_error(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build("preprocess")
+
+
+def _plain(frames, h_off, w_off):
+    return preprocess.crop_normalize_reference(
+        torch.from_numpy(frames), torch.from_numpy(h_off), torch.from_numpy(w_off),
+        torch.from_numpy(MIRROR), crop=CROP, mean=MEAN, out_dtype=torch.float32)
+
+
+def test_offsets_are_clamped_into_the_frame():
+    """Offsets past the far edge read the last in-frame window, as
+    lax.dynamic_slice clamps in the XLA twin; negative offsets read the
+    window at 0 (dynamic_slice would wrap them first, which no caller means).
+    The kernel clamps the same way, so it never reads outside the frame."""
+    frames = _frames(2)
+    h_off = np.array([H, 100, 0, H - CROP], np.int32)
+    w_off = np.array([3, W, 1000, W - CROP], np.int32)
+    want = _crop_normalize_xla(
+        jnp.asarray(frames), jnp.asarray(h_off), jnp.asarray(w_off), jnp.asarray(MIRROR),
+        crop=CROP, mean=MEAN, out_dtype=jnp.float32)
+    np.testing.assert_array_equal(_plain(frames, h_off, w_off).numpy(), np.asarray(want))
+    neg = np.array([-5, -1, 0, -100], np.int32)
+    zero = np.zeros(N, np.int32)
+    assert torch.equal(_plain(frames, neg, neg), _plain(frames, zero, zero))
