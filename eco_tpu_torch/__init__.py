@@ -6,13 +6,19 @@ which hold no framework code) with PyTorch ops, and replaces each Pallas
 kernel with a kernel written by hand for Hopper.
 
 - ``eco_tpu_torch.ops``      -- channels-last op library (conv, Caffe pools,
-                                BN math, elementwise, fc, softmax) and the
-                                uint8 crop/normalize kernel (``csrc/``).
-- ``eco_tpu_torch.runtime``  -- GraphSpec -> inference ``Program``.
-- ``eco_tpu_torch.convert``  -- weight bridge from ``eco_tpu`` params,
-                                sibling-1x1 merge and BN folding.
+                                BN math inference and train, elementwise,
+                                dropout, fc, softmax, loss and accuracy) and
+                                the CUDA kernels (``csrc/``): uint8
+                                crop/normalize and the fused 3x3/s2 max pool.
+- ``eco_tpu_torch.runtime``  -- GraphSpec -> ``Program``, TEST or TRAIN.
+- ``eco_tpu_torch.convert``  -- weight bridge to and from ``eco_tpu``'s
+                                layout, sibling-1x1 merge and BN folding.
 - ``eco_tpu_torch.apps``     -- ``UInt8Server``: uint8 frames in, class
-                                probabilities out.
+                                probabilities out; ``RawPreprocessProgram``:
+                                the uint8 plane in front of any Program.
+- ``eco_tpu_torch.train``    -- Caffe-exact solver step, lr policies,
+                                checkpoints in the reference's files, and
+                                the ``Trainer``.
 
 The package imports ``torch`` and never ``jax``.
 """

@@ -1,1 +1,1 @@
-from eco_tpu_torch.apps.serving import UInt8Server
+from eco_tpu_torch.apps.serving import RawPreprocessProgram, UInt8Server

@@ -1,8 +1,10 @@
-"""Serving path: raw uint8 frames in, class probabilities out.
+"""Raw uint8 frames in: the serving path and the raw train plane.
 
-Twin of ``eco_tpu/apps/serving.py:UInt8Server``, float plane only: the
-crop/mirror/mean kernel (``ops/preprocess.py``) followed by an
-inference-optimized ``Program``.  The host ships uint8, a quarter of the
+Twin of ``eco_tpu/apps/serving.py``, float plane only.
+``UInt8Server`` is the crop/mirror/mean kernel (``ops/preprocess.py``)
+followed by an inference-optimized ``Program``; ``RawPreprocessProgram``
+puts the same kernel in front of any ``Program``, so a train step or a test
+pass consumes uint8 batches.  The host ships uint8, a quarter of the
 bytes of f32 clips, and does no per-frame math.  The int8 plane is not
 ported yet: a quantized graph (``qconvolution`` layers) already fails to
 build a ``Program``.
@@ -58,3 +60,62 @@ class UInt8Server:
         outs, _ = self.program.apply(
             self.params, self.state, {"data": clips}, capture=[self.output])
         return outs[self.output]
+
+
+class RawPreprocessProgram:
+    """Program wrapper for the ``raw`` data plane: batches carry uint8 frames
+    and host-sampled augment decisions, and the crop/mirror/mean kernel runs
+    on the device in front of the wrapped program.
+
+    Drop-in for ``Program`` in ``make_train_step``/``make_eval_step``/
+    ``Trainer``: it delegates graph, outputs and ``total_loss``, and its
+    ``apply``/``init`` take ``{"data": uint8 (N, S, H, W, 3), "h_off",
+    "w_off", "mirror", "label", ...}``.  Clips come out in the program's
+    ``compute_dtype`` (f32 when it is None).  The multi-scale branch
+    (``crop_h``/``crop_w`` in the batch: crop and bilinear resize) is not
+    ported yet and raises.
+    """
+
+    _AUG_KEYS = ("h_off", "w_off", "mirror", "crop_h", "crop_w")
+
+    def __init__(self, program, *, crop: int = 224, mean=(104.0, 117.0, 123.0)):
+        self.inner = program
+        self.crop = crop
+        self.mean = mean
+        # delegated surface used by the solver and the Trainer
+        self.graph = program.graph
+        self.train = program.train
+        self.compute_dtype = program.compute_dtype
+        self.device = program.device
+        self.output_names = program.output_names
+        self.loss_names = program.loss_names
+        self.exec_layers = program.exec_layers
+        self.total_loss = program.total_loss
+
+    def _clips(self, inputs):
+        if "crop_h" in inputs or "crop_w" in inputs:
+            raise NotImplementedError(
+                "the multi-scale raw plane (crop + bilinear resize, ops/resize.py) "
+                "is not ported yet")
+        # pinned host tensors then reach the device without a blocking copy
+        frames, h_off, w_off, mirror = (
+            torch.as_tensor(inputs[k]).to(self.device, non_blocking=True)
+            for k in ("data", "h_off", "w_off", "mirror"))
+        return preprocess_on_device(
+            frames, h_off, w_off, mirror, crop=self.crop, mean=self.mean,
+            out_dtype=self.compute_dtype or torch.float32,
+        )
+
+    def _inner_inputs(self, inputs):
+        return {k: v for k, v in inputs.items() if k != "data" and k not in self._AUG_KEYS}
+
+    def init(self, generator, sample_inputs):
+        inner = self._inner_inputs(sample_inputs)
+        n, s = tuple(getattr(sample_inputs["data"], "shape", sample_inputs["data"]))[:2]
+        inner["data"] = (n, s, self.crop, self.crop, 3)
+        return self.inner.init(generator, inner)
+
+    def apply(self, params, state, inputs, *, generator=None, capture=None):
+        inner = self._inner_inputs(inputs)
+        inner["data"] = self._clips(inputs)
+        return self.inner.apply(params, state, inner, generator=generator, capture=capture)

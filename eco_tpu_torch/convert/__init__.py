@@ -1,4 +1,4 @@
-from eco_tpu_torch.convert.bridge import params_from_jax
+from eco_tpu_torch.convert.bridge import params_from_jax, params_to_jax
 from eco_tpu_torch.convert.load import fold_bn
 from eco_tpu_torch.spec.transforms import merge_sibling_1x1_convs
 

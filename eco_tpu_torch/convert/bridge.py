@@ -1,15 +1,21 @@
-"""Carry ``eco_tpu`` params and state into this package's tensors.
+"""Carry params and state between ``eco_tpu``'s layout and this package's.
 
 The reference keeps convolution weights spatial-first, ``(*k, C_in/g,
 C_out)``, and fc weights ``(D_in, D_out)``; this package keeps PyTorch's
 ``(C_out, C_in/g, *k)`` and ``(D_out, D_in)``.  BN, Scale and bias vectors
-carry over unchanged.  Inputs are nested dicts of arrays (numpy, or anything
-``numpy.asarray`` takes); no JAX import is needed.
+carry over unchanged.  ``params_from_jax`` takes nested dicts of arrays
+(numpy, or anything ``numpy.asarray`` takes); ``params_to_jax`` gives nested
+dicts of numpy arrays.  No JAX import is needed.
+
+A layer's type decides its weight layout.  Without a graph (``graph=None``,
+as for a checkpoint file) the rank decides: a ``w`` of rank 2 is an fc
+weight and one of rank >= 3 a convolution weight, the only two weight
+layouts that the port's layers have.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
@@ -17,21 +23,42 @@ import torch
 from eco_tpu.spec.graph import GraphSpec
 
 
-def _to_torch_layout(layer_type: str, pname: str, a: np.ndarray) -> np.ndarray:
-    if pname == "w" and layer_type == "convolution":
+def _weight_kind(layer_type: Optional[str], a: np.ndarray) -> str:
+    if layer_type is None:
+        return "convolution" if a.ndim >= 3 else "innerproduct"
+    if layer_type in ("convolution", "innerproduct"):
+        return layer_type
+    raise NotImplementedError(f"no weight layout for layer type {layer_type!r}")
+
+
+def _to_torch_layout(layer_type: Optional[str], pname: str, a: np.ndarray) -> np.ndarray:
+    if pname != "w":
+        return a
+    if _weight_kind(layer_type, a) == "convolution":
         nsp = a.ndim - 2
         return np.transpose(a, (nsp + 1, nsp) + tuple(range(nsp)))
-    if pname == "w" and layer_type == "innerproduct":
-        return a.T
-    if pname == "w":
-        raise NotImplementedError(f"no weight layout for layer type {layer_type!r}")
-    return a
+    return a.T
 
 
-def params_from_jax(graph: GraphSpec, params: Mapping, state: Mapping, *,
+def _to_jax_layout(layer_type: Optional[str], pname: str, a: np.ndarray) -> np.ndarray:
+    if pname != "w":
+        return a
+    if _weight_kind(layer_type, a) == "convolution":
+        return np.transpose(a, tuple(range(2, a.ndim)) + (1, 0))
+    return a.T
+
+
+def _layer_types(graph: Optional[GraphSpec]):
+    if graph is None:
+        return lambda lname: None
+    types = {l.name: l.type.lower() for l in graph.layers}
+    return lambda lname: types.get(lname, "")
+
+
+def params_from_jax(graph: Optional[GraphSpec], params: Mapping, state: Mapping, *,
                     device="cpu"):
     """(params, state) of ``eco_tpu`` -> the same trees of torch tensors."""
-    types = {l.name: l.type.lower() for l in graph.layers}
+    layer_type = _layer_types(graph)
 
     def convert(tree, layouts: bool):
         out = {}
@@ -40,9 +67,28 @@ def params_from_jax(graph: GraphSpec, params: Mapping, state: Mapping, *,
             for pname, value in entries.items():
                 a = np.asarray(value)
                 if layouts:
-                    a = _to_torch_layout(types.get(lname, ""), pname, a)
+                    a = _to_torch_layout(layer_type(lname), pname, a)
                 # a copy: arrays from JAX are read-only
                 out[lname][pname] = torch.from_numpy(np.array(a, order="C")).to(device)
+        return out
+
+    return convert(params, True), convert(state, False)
+
+
+def params_to_jax(graph: Optional[GraphSpec], params: Mapping, state: Mapping):
+    """The inverse of ``params_from_jax``: trees of torch tensors (on any
+    device) -> ``eco_tpu``'s trees of numpy arrays in its layout."""
+    layer_type = _layer_types(graph)
+
+    def convert(tree, layouts: bool):
+        out = {}
+        for lname, entries in tree.items():
+            out[lname] = {}
+            for pname, value in entries.items():
+                a = value.detach().cpu().numpy()
+                if layouts:
+                    a = _to_jax_layout(layer_type(lname), pname, a)
+                out[lname][pname] = np.ascontiguousarray(a)
         return out
 
     return convert(params, True), convert(state, False)

@@ -43,32 +43,52 @@ def find_nvcc() -> str:
     )
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its keyed library already exists."""
+def _target(name: str) -> Path:
     digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
-    if out.is_file():
-        return out
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build_all(names) -> list[Path]:
+    """Compile each ``csrc/<name>.cu`` whose keyed library does not exist
+    yet, one ``nvcc`` per source, all started together."""
+    outs = [_target(n) for n in names]
+    todo = [(n, out) for n, out in zip(names, outs) if not out.is_file()]
+    if not todo:
+        return outs
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # Compile to a private name and rename, so concurrent builds never load
-    # a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    tmps, procs = [], []
     try:
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) building {name}.cu:\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, out)
+        for name, _ in todo:
+            # Compile to a private name and rename, so concurrent builds
+            # never load a half-written library.
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            tmps.append(tmp)
+            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
+            procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True))
+        for (name, out), tmp, proc in zip(todo, tmps, procs):
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}) building {name}.cu:\n{log}")
+            os.replace(tmp, out)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for tmp in tmps:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return outs
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its keyed library already exists."""
+    return build_all([name])[0]
 
 
 def load(name: str) -> ctypes.CDLL:

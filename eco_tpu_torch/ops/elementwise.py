@@ -1,5 +1,9 @@
-"""ReLU, eval-mode dropout, eltwise and channel concat
-(twin of ``eco_tpu/ops/elementwise.py``)."""
+"""ReLU, dropout, eltwise and channel concat
+(twin of ``eco_tpu/ops/elementwise.py``).
+
+ReLU's gradient at exactly 0 is 0 here, as in Caffe's backward; the
+reference's ``jnp.maximum(x, 0)`` gives 0.5 there.
+"""
 
 from __future__ import annotations
 
@@ -14,11 +18,19 @@ def relu(x: torch.Tensor, negative_slope: float = 0.0) -> torch.Tensor:
     return torch.relu(x)
 
 
-def dropout(x: torch.Tensor, rate: float, *, train: bool = False) -> torch.Tensor:
-    """Caffe inverted dropout is the identity at TEST."""
-    if train and rate > 0.0:
-        raise NotImplementedError("train-mode dropout is not ported yet")
-    return x
+def dropout(x: torch.Tensor, rate: float, *, train: bool = False,
+            generator: torch.Generator | None = None) -> torch.Tensor:
+    """Caffe inverted dropout (dropout_layer.cpp): at TRAIN each value is kept
+    with probability ``keep = 1 - rate`` and divided by ``keep``; at TEST it
+    is the identity.  The mask is drawn from ``generator``, which must live
+    on ``x``'s device; it does not reproduce ``jax.random.bernoulli``'s bits."""
+    if not train or rate <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout(train=True) needs a generator")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x)).to(x.dtype)
 
 
 def eltwise(

@@ -8,13 +8,19 @@ not used, because it agrees with Caffe only on some shapes.
 
 - MAX pads with ``-inf`` (the integer minimum for integer types) and then
   takes unpadded windows: ATen's ``max_pool{1,2,3}d`` for floats, a window
-  view and ``amax`` for integers, which ATen's pools do not take.
+  view and ``amax`` for integers, which ATen's pools do not take.  With
+  ``ECO_PALLAS_POOL=1``, a float 3x3/s2/pad-0 max pool with even H and W on
+  the card goes to the fused kernel of ``ops/poolfuse.py`` instead, as the
+  reference's goes to its Pallas kernel on the TPU; that route has no
+  backward and raises when a gradient is asked through it.
 - AVE sums the zero-padded windows in f32 and divides by the static
   per-position divisor grid of ``caffe_avg_pool_divisors``, so padded cells
   count in the denominator as in pooling_layer.cpp.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -25,6 +31,7 @@ from eco_tpu.utils.shapes import (
     caffe_pool_out_dim,
     normalize_spatial_param,
 )
+from eco_tpu_torch.ops import poolfuse
 
 _MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
 
@@ -75,6 +82,10 @@ def pool_nd(
 
     mode = mode.lower()
     if mode == "max":
+        if (os.environ.get("ECO_PALLAS_POOL") == "1" and x.device.type == "cuda"
+                and x.dtype.is_floating_point
+                and poolfuse.supports(x.shape, kernel, stride, pad, mode)):
+            return poolfuse.fused_maxpool_3x3s2(x)
         if x.dtype.is_floating_point:
             xp = _pad_spatial(x, pad_cfg, float("-inf"))
             y = _MAX_POOL[num_spatial](xp.movedim(-1, 1), kernel, stride)

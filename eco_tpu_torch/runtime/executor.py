@@ -1,13 +1,18 @@
-"""GraphSpec -> inference ``Program`` on PyTorch.
+"""GraphSpec -> ``Program`` on PyTorch, for inference and training.
 
-Twin of ``eco_tpu/runtime/executor.py:Program``, inference only.  The graph
-IR is the reference's own (``eco_tpu.spec.graph``); each layer type maps to
-an implementation over this package's ops.
+Twin of ``eco_tpu/runtime/executor.py:Program``.  The graph IR is the
+reference's own (``eco_tpu.spec.graph``); each layer type maps to an
+implementation over this package's ops.
 
 State contract, as in the reference:
     params: {layer_name: {param_name: tensor}}
     state:  {layer_name: {stat_name:  tensor}}   -- BN running stats
-    apply(params, state, inputs) -> (blobs, state)
+    apply(params, state, inputs, generator) -> (blobs, new_state)
+
+The program is functional: ``apply`` writes nothing into ``params`` or
+``state`` and returns the updated BN statistics as a new tree, so
+``torch.autograd.grad`` of a loss top with respect to the param tensors is
+the train step's gradient.
 
 Blobs keep the reference's physical layout, channels-last ``(N, *spatial,
 C)`` and contiguous for rank >= 3, ``(N, D)`` for matrices.  Params are in
@@ -18,12 +23,14 @@ PyTorch's layout: conv ``w`` is ``(C_out, C_in/g, *k)``, fc ``w`` is
 from __future__ import annotations
 
 import math
+import zlib
+from dataclasses import dataclass, field
 from typing import Any, Mapping, Optional, Sequence
 
 import torch
 from torch import nn
 
-from eco_tpu.spec.graph import TEST, GraphSpec, LayerSpec
+from eco_tpu.spec.graph import TEST, TRAIN, GraphSpec, LayerSpec
 from eco_tpu.utils.shapes import normalize_spatial_param
 from eco_tpu_torch import ops
 from eco_tpu_torch.runtime.init import fill
@@ -33,6 +40,25 @@ DATA_LAYER_TYPES = {
     "videodata", "input", "imagedata", "data", "memorydata", "hdf5data",
     "windowdata", "segdata",
 }
+
+
+@dataclass
+class Context:
+    """What one ``apply`` hands every layer: the phase, the step's random
+    seed, and the BN statistics that train mode updates."""
+
+    train: bool = False
+    seed: Optional[int] = None
+    new_state: dict = field(default_factory=dict)
+
+    def layer_generator(self, layer_name: str, device) -> Optional[torch.Generator]:
+        """A generator on ``device`` for this layer and step: the step's seed
+        mixed with ``zlib.crc32`` of the name, as the reference folds the
+        name's crc32 into the step's key (``Context.layer_rng``)."""
+        if self.seed is None:
+            return None
+        seed = self.seed ^ zlib.crc32(layer_name.encode())
+        return torch.Generator(device=device).manual_seed(seed)
 
 
 class LayerImpl:
@@ -48,7 +74,7 @@ class LayerImpl:
     def state_specs(self, spec: LayerSpec, in_shapes) -> dict:
         return {}
 
-    def apply(self, spec, params, state, inputs) -> list:
+    def apply(self, spec, params, state, inputs, ctx: Context) -> list:
         raise NotImplementedError
 
 
@@ -69,7 +95,7 @@ class _Conv(LayerImpl):
             out["b"] = ((cout,), spec.opt("bias_filler", {"type": "constant"}))
         return out
 
-    def apply(self, spec, params, state, inputs):
+    def apply(self, spec, params, state, inputs, ctx):
         return [ops.conv_nd(
             inputs[0], params["w"], params.get("b"),
             stride=spec.opt("stride", 1), pad=spec.opt("pad", 0),
@@ -86,7 +112,7 @@ class _InnerProduct(LayerImpl):
             out["b"] = ((dout,), spec.opt("bias_filler", {"type": "constant"}))
         return out
 
-    def apply(self, spec, params, state, inputs):
+    def apply(self, spec, params, state, inputs, ctx):
         x = inputs[0]
         if x.ndim > 2:
             # Caffe flattens trailing axes in *logical* order.
@@ -95,7 +121,8 @@ class _InnerProduct(LayerImpl):
 
 
 class _BN(LayerImpl):
-    """Inference BN: running statistics, frozen or not."""
+    """BN with Caffe-engine/cuDNN/frozen semantics: batch moments and a
+    running update at TRAIN unless ``frozen``, running statistics otherwise."""
 
     def param_specs(self, spec, in_shapes):
         c = in_shapes[0][-1]
@@ -108,10 +135,18 @@ class _BN(LayerImpl):
         c = in_shapes[0][-1]
         return {"mean": ((c,), 0.0), "var": ((c,), 1.0)}
 
-    def apply(self, spec, params, state, inputs):
+    def apply(self, spec, params, state, inputs, ctx):
+        eps = float(spec.opt("eps", 1e-5))
+        if ctx.train and not bool(spec.opt("frozen", False)):
+            y, mean, var = ops.bn_train(
+                inputs[0], params["gamma"], params["beta"], state["mean"],
+                state["var"], eps=eps, momentum=float(spec.opt("momentum", 0.9)),
+            )
+            ctx.new_state[spec.name] = {"mean": mean, "var": var}
+            return [y]
         return [ops.bn_inference(
             inputs[0], params["gamma"], params["beta"], state["mean"],
-            state["var"], eps=float(spec.opt("eps", 1e-5)),
+            state["var"], eps=eps,
         )]
 
 
@@ -126,17 +161,17 @@ class _Scale(LayerImpl):
             out["shift"] = ((c,), {"type": "constant", "value": 0.0})
         return out
 
-    def apply(self, spec, params, state, inputs):
+    def apply(self, spec, params, state, inputs, ctx):
         return [ops.scale_shift(inputs[0], params["scale"], params.get("shift", 0.0))]
 
 
 class _ReLU(LayerImpl):
-    def apply(self, spec, params, state, inputs):
+    def apply(self, spec, params, state, inputs, ctx):
         return [ops.relu(inputs[0], float(spec.opt("negative_slope", 0.0)))]
 
 
 class _Pooling(LayerImpl):
-    def apply(self, spec, params, state, inputs):
+    def apply(self, spec, params, state, inputs, ctx):
         k = spec.opt("kernel_size")
         if k is None and spec.opt("kernel_h") is not None:
             k = (int(spec.opt("kernel_h")), int(spec.opt("kernel_w")))
@@ -154,17 +189,21 @@ class _Pooling(LayerImpl):
 
 
 class _Dropout(LayerImpl):
-    def apply(self, spec, params, state, inputs):
-        return [ops.dropout(inputs[0], float(spec.opt("dropout_ratio", 0.5)))]
+    def apply(self, spec, params, state, inputs, ctx):
+        x = inputs[0]
+        return [ops.dropout(
+            x, float(spec.opt("dropout_ratio", 0.5)), train=ctx.train,
+            generator=ctx.layer_generator(spec.name, x.device),
+        )]
 
 
 class _Eltwise(LayerImpl):
-    def apply(self, spec, params, state, inputs):
+    def apply(self, spec, params, state, inputs, ctx):
         return [ops.eltwise(inputs, spec.opt("operation", "sum"), spec.opt("coeffs"))]
 
 
 class _Concat(LayerImpl):
-    def apply(self, spec, params, state, inputs):
+    def apply(self, spec, params, state, inputs, ctx):
         # concat_dim is the V0/V1 legacy spelling of axis
         axis = int(spec.opt("axis", spec.opt("concat_dim", 1)))
         if inputs[0].ndim <= 2:
@@ -177,7 +216,7 @@ class _Concat(LayerImpl):
 
 
 class _Slice(LayerImpl):
-    def apply(self, spec, params, state, inputs):
+    def apply(self, spec, params, state, inputs, ctx):
         x = ops.to_logical(inputs[0])
         axis = int(spec.opt("axis", 1))
         points = spec.opt("slice_point")
@@ -192,7 +231,7 @@ class _Slice(LayerImpl):
 
 
 class _Reshape(LayerImpl):
-    def apply(self, spec, params, state, inputs):
+    def apply(self, spec, params, state, inputs, ctx):
         x = ops.to_logical(inputs[0])
         dims = ops.caffe_reshape_dims(
             x.shape, spec.opt("dims"),
@@ -202,40 +241,56 @@ class _Reshape(LayerImpl):
 
 
 class _Flatten(LayerImpl):
-    def apply(self, spec, params, state, inputs):
+    def apply(self, spec, params, state, inputs, ctx):
         x = ops.to_logical(inputs[0])
         return [x.reshape(x.shape[0], -1)]
 
 
 class _FoldSegments(LayerImpl):
-    def apply(self, spec, params, state, inputs):
+    def apply(self, spec, params, state, inputs, ctx):
         return [ops.fold_segments(inputs[0])]
 
 
 class _UnfoldSegments(LayerImpl):
-    def apply(self, spec, params, state, inputs):
+    def apply(self, spec, params, state, inputs, ctx):
         return [ops.unfold_segments(inputs[0], int(spec.opt("num_segments")))]
 
 
 class _GlobalAvgPool(LayerImpl):
-    def apply(self, spec, params, state, inputs):
+    def apply(self, spec, params, state, inputs, ctx):
         return [ops.global_avg_pool(inputs[0])]
 
 
 class _Softmax(LayerImpl):
-    def apply(self, spec, params, state, inputs):
+    def apply(self, spec, params, state, inputs, ctx):
         return [ops.softmax(inputs[0])]
+
+
+class _SoftmaxWithLoss(LayerImpl):
+    def apply(self, spec, params, state, inputs, ctx):
+        return [ops.softmax_cross_entropy(
+            inputs[0], inputs[1].long(), ignore_label=spec.opt("ignore_label"),
+            normalization=spec.opt("normalization", "valid"),
+        )]
+
+
+class _Accuracy(LayerImpl):
+    def apply(self, spec, params, state, inputs, ctx):
+        return [ops.topk_accuracy(
+            inputs[0], inputs[1].long(), int(spec.opt("top_k", 1)),
+            ignore_label=spec.opt("ignore_label"),
+        )]
 
 
 class _Split(LayerImpl):
     """Fan-out: one bottom copied to N tops, free in a functional executor."""
 
-    def apply(self, spec, params, state, inputs):
+    def apply(self, spec, params, state, inputs, ctx):
         return [inputs[0]] * len(spec.tops)
 
 
 class _Identity(LayerImpl):
-    def apply(self, spec, params, state, inputs):
+    def apply(self, spec, params, state, inputs, ctx):
         return [inputs[0]]
 
 
@@ -256,6 +311,8 @@ IMPLS: dict[str, LayerImpl] = {
     "unfold_segments": _UnfoldSegments(),
     "global_avg_pool": _GlobalAvgPool(),
     "softmax": _Softmax(),
+    "softmaxwithloss": _SoftmaxWithLoss(),
+    "accuracy": _Accuracy(),
     "split": _Split(),
     "identity": _Identity(),
 }
@@ -270,16 +327,19 @@ def get_impl(layer_type: str) -> LayerImpl:
 
 
 class Program(nn.Module):
-    """The TEST-phase executable view of a GraphSpec on one device.
+    """A phase-filtered, executable view of a GraphSpec on one device.
 
-    ``init`` builds (params, state) by propagating shapes on the ``meta``
-    device (no real compute) and filling each param from a
-    ``torch.Generator``; ``apply`` runs the graph eagerly.
+    ``train`` picks the TRAIN or TEST layers (TEST by default) and the
+    behaviour of BN and dropout.  ``init`` builds (params, state) by
+    propagating shapes on the ``meta`` device (no real compute) and filling
+    each param from a ``torch.Generator``; ``apply`` runs the graph eagerly.
     """
 
-    def __init__(self, graph: GraphSpec, *, compute_dtype=None, device="cpu"):
+    def __init__(self, graph: GraphSpec, *, train: bool = False, compute_dtype=None,
+                 device="cpu"):
         super().__init__()
-        self.graph = graph.filtered(TEST)
+        self.graph = graph.filtered(TRAIN if train else TEST)
+        self.train = train
         self.compute_dtype = compute_dtype
         self.device = torch.device(device)
         data_layers = [
@@ -300,6 +360,9 @@ class Program(nn.Module):
         }
         produced = [t for l in self.exec_layers for t in l.tops]
         self.output_names = [t for t in dict.fromkeys(produced) if t not in consumed]
+        self.loss_names = [
+            l.tops[0] for l in self.exec_layers if "loss" in l.type.lower() and l.tops
+        ]
 
     def cast_input(self, v: torch.Tensor) -> torch.Tensor:
         """Float feature tensors (ndim >= 3) go to compute_dtype; labels and
@@ -308,17 +371,19 @@ class Program(nn.Module):
             v = v.to(self.compute_dtype)
         return v
 
-    def init(self, generator: torch.Generator, sample_shapes: Mapping[str, Sequence[int]]):
-        """Build (params, state) on ``self.device`` from input shapes."""
+    def init(self, generator: torch.Generator, sample_shapes: Mapping[str, Any]):
+        """Build (params, state) on ``self.device`` from input shapes (or
+        sample tensors, of which only the shapes are read)."""
         missing = [n for n in self.input_names if n not in sample_shapes]
         if missing:
             raise ValueError(f"sample_shapes missing {missing}")
         blobs = {
-            k: self.cast_input(torch.empty(tuple(s), device="meta"))
+            k: self.cast_input(torch.empty(tuple(getattr(s, "shape", s)), device="meta"))
             for k, s in sample_shapes.items()
         }
         params: dict = {}
         state: dict = {}
+        ctx = Context(train=False)
         for layer, impl in zip(self.exec_layers, self._impls):
             ins = [blobs[b] for b in layer.bottoms]
             in_shapes = [tuple(x.shape) for x in ins]
@@ -338,20 +403,32 @@ class Program(nn.Module):
                 layer,
                 {k: v.to("meta") for k, v in lp.items()},
                 {k: v.to("meta") for k, v in ls.items()},
-                ins,
+                ins, ctx,
             )
             for t, o in zip(layer.tops, outs):
                 blobs[t] = o
         return params, state
 
     def apply(self, params: Mapping, state: Mapping, inputs: Mapping[str, Any],
-              *, capture: Optional[Sequence[str]] = None):
-        """Run the graph.  Returns (outputs, state): ``outputs`` maps every
-        dangling top and every ``capture``d blob to its value; inference
-        leaves ``state`` as it is."""
+              *, generator: Optional[torch.Generator] = None,
+              capture: Optional[Sequence[str]] = None):
+        """Run the graph.  Returns (outputs, new_state): ``outputs`` maps
+        every dangling top and every ``capture``d blob to its value;
+        ``new_state`` is ``state`` with the BN statistics that a train-mode
+        run updated replaced.
+
+        ``generator`` draws the step's random seed (train-mode dropout);
+        each layer then gets its own generator on the tensor's device.  A
+        CPU generator costs no device synchronisation.
+        """
+        seed = None
+        if generator is not None:
+            seed = int(torch.randint(0, 2**62, (1,), generator=generator,
+                                     device=generator.device).item())
+        ctx = Context(train=self.train, seed=seed)
         blobs: dict[str, torch.Tensor] = {}
         for k, v in inputs.items():
-            v = torch.as_tensor(v, device=self.device)
+            v = torch.as_tensor(v).to(self.device, non_blocking=True)
             declared = self.graph.inputs.get(k)
             if declared is not None and tuple(v.shape[1:]) != tuple(declared[1:]):
                 # batch (axis 0) is free; a wrong segment count would otherwise
@@ -364,14 +441,22 @@ class Program(nn.Module):
         for layer, impl in zip(self.exec_layers, self._impls):
             outs = impl.apply(
                 layer, params.get(layer.name, {}), state.get(layer.name, {}),
-                [blobs[b] for b in layer.bottoms],
+                [blobs[b] for b in layer.bottoms], ctx,
             )
             for t, o in zip(layer.tops, outs):
                 blobs[t] = o
         wanted = list(self.output_names) + [
             c for c in (capture or ()) if c not in self.output_names
         ]
-        return {k: blobs[k] for k in wanted}, state
+        return {k: blobs[k] for k in wanted}, {**state, **ctx.new_state}
 
-    def forward(self, params, state, inputs, *, capture=None):
-        return self.apply(params, state, inputs, capture=capture)
+    def forward(self, params, state, inputs, *, generator=None, capture=None):
+        return self.apply(params, state, inputs, generator=generator, capture=capture)
+
+    def total_loss(self, outputs: Mapping[str, Any]):
+        """Sum of loss tops weighted by loss_weight (solver.cpp output calc)."""
+        total = 0.0
+        for l in self.exec_layers:
+            if l.tops and l.tops[0] in self.loss_names:
+                total = total + float(l.opt("loss_weight", 1.0)) * outputs[l.tops[0]]
+        return total

@@ -1,5 +1,6 @@
-"""eco_tpu_torch on a CUDA device: the hand-written kernel against its plain
-version, and the serving path on the card against the same path on the CPU.
+"""eco_tpu_torch on a CUDA device: the hand-written kernels against their
+plain versions, and the serving path and a train step on the card against
+the same on the CPU.
 
 These tests need an NVIDIA GPU and nvcc, and skip without them.  The file
 imports no JAX, so it also runs where JAX is not installed:
@@ -10,15 +11,27 @@ imports no JAX, so it also runs where JAX is not installed:
 import pytest
 import torch
 
-from eco_tpu_torch.apps import UInt8Server
+from eco_tpu_torch.apps import RawPreprocessProgram, UInt8Server
 from eco_tpu_torch.convert import optimize_for_inference
-from eco_tpu_torch.models import get_model
-from eco_tpu_torch.ops import preprocess
+from eco_tpu_torch.models import build_eco_lite, get_model
+from eco_tpu_torch.ops import poolfuse, preprocess
+from eco_tpu_torch.ops.pool import pool_nd
 from eco_tpu_torch.runtime import Program
+from eco_tpu_torch.train import SolverConfig, init_train_state, make_train_step
 
 pytestmark = pytest.mark.cuda
 
 MEAN = (104.0, 117.0, 123.0)
+F32_UPDATE_REL_L2_BOUND = 5e-2
+
+
+@pytest.fixture(autouse=True)
+def _grad_enabled():
+    """tests/test_golden_torch.py turns autograd off for its whole process
+    when it is imported, and pytest-xdist workers import every test file;
+    these tests need it on."""
+    with torch.enable_grad():
+        yield
 
 
 @pytest.fixture
@@ -89,3 +102,92 @@ def test_server_on_card_matches_cpu(cuda):
                              crop=64, output="fc8")
         outs.append(server(frames, h_off=h_off, w_off=w_off, mirror=mirror).cpu())
     torch.testing.assert_close(outs[1], outs[0], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("shape", [(4, 112, 112, 64), (2, 56, 56, 192), (3, 8, 12, 5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("variant", ["plain", "relu", "affine"])
+def test_fused_maxpool_equals_plain_version(cuda, shape, dtype, variant):
+    """(3, 8, 12, 5): C is no whole 16-byte vector, the kernel's scalar path."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    y = (torch.randn(shape, device=cuda, generator=gen) - 1.0).to(dtype)
+    scale = torch.randn(shape[-1], device=cuda, generator=gen) * 0.3 + 1.0
+    shift = torch.randn(shape[-1], device=cuda, generator=gen) * 0.2
+    kw = dict(relu=variant == "relu", affine=variant == "affine")
+    args = (scale, shift) if variant == "affine" else ()
+    before = poolfuse.fused_maxpool_launches
+    got = poolfuse.fused_maxpool_3x3s2(y, *args, **kw)
+    torch.cuda.synchronize()
+    assert poolfuse.fused_maxpool_launches == before + 1
+    assert got.dtype == dtype and got.is_contiguous()
+    assert torch.equal(got, poolfuse.fused_maxpool_3x3s2_reference(y, *args, **kw))
+
+
+def test_fused_maxpool_scalar_path_on_an_unaligned_view(cuda):
+    base = torch.randn(1 + 2 * 16 * 16 * 8, device=cuda).to(torch.bfloat16)
+    y = base[1:].view(2, 16, 16, 8)  # 2-byte offset: no 16-byte vectors
+    assert y.data_ptr() % 16 != 0
+    assert torch.equal(poolfuse.fused_maxpool_3x3s2(y),
+                       poolfuse.fused_maxpool_3x3s2_reference(y))
+
+
+def test_fused_maxpool_propagates_nan_like_plain_version(cuda):
+    y = torch.randn(1, 8, 8, 8, device=cuda)
+    y[0, 4, 4, 2] = float("nan")  # in the windows (1|2, 1|2)
+    got = poolfuse.fused_maxpool_3x3s2(y)
+    want = poolfuse.fused_maxpool_3x3s2_reference(y)
+    assert torch.equal(got.isnan(), want.isnan()) and got.isnan().sum() == 4
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())
+
+
+def test_pool_route_takes_kernel_only_when_asked_and_never_under_a_gradient(cuda, monkeypatch):
+    x = torch.randn(2, 16, 16, 8, device=cuda)
+    want = poolfuse.fused_maxpool_3x3s2_reference(x)
+    before = poolfuse.fused_maxpool_launches
+    assert torch.equal(pool_nd(x, kernel=3, stride=2, mode="max"), want)
+    assert poolfuse.fused_maxpool_launches == before  # variable unset: ATen
+    monkeypatch.setenv("ECO_PALLAS_POOL", "1")
+    assert torch.equal(pool_nd(x, kernel=3, stride=2, mode="max"), want)
+    assert poolfuse.fused_maxpool_launches == before + 1
+    # not supported (odd H), integer, or pad: the route stays on ATen
+    pool_nd(x[:, :15], kernel=3, stride=2, mode="max")
+    pool_nd(x.to(torch.int8), kernel=3, stride=2, mode="max")
+    pool_nd(x, kernel=3, stride=2, pad=1, mode="max")
+    assert poolfuse.fused_maxpool_launches == before + 1
+    with pytest.raises(NotImplementedError, match="backward"):
+        pool_nd(x.requires_grad_(), kernel=3, stride=2, mode="max")
+    with pytest.raises(ValueError, match="contiguous"):
+        poolfuse.fused_maxpool_3x3s2(x.detach().transpose(1, 2))
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One f32 Nesterov step of full-width ECO-Lite at crop 64, S=4, N=2,
+    dropout 0, through the raw uint8 plane, TF32 off, card against CPU.
+
+    The bound is F32_UPDATE_REL_L2_BOUND: at this size the f32 step is
+    sensitive to the order of its sums (train-mode BN's f32 moments over few
+    values).  On the CPU, the same step of this port and of the reference
+    differ by 9.7e-3 relative L2 in the update, and the reference's f32
+    gradients differ from its own f64 ones by up to 9.0e-3 (the port's by
+    5.5e-3); the card sums in yet other orders."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    graph = build_eco_lite(400, 4, crop_size=64, with_loss=True, batch=2, dropout_ratio=0.0)
+    params, state = Program(graph, train=True).init(
+        torch.Generator().manual_seed(0), {"data": graph.inputs["data"], "label": (2,)})
+    frames, h_off, w_off, mirror = (t.cpu() for t in _batch(cuda, 2, 4, 80, 96, 64))
+    batch = {"data": frames[None], "h_off": h_off[None], "w_off": w_off[None],
+             "mirror": mirror[None], "label": torch.tensor([[3, 397]])}
+    cfg = SolverConfig(base_lr=0.005, lr_policy="fixed", momentum=0.9, weight_decay=5e-4,
+                       clip_gradients=40.0, solver_type="nesterov")
+    updates = []
+    for dev in ("cpu", cuda):
+        p = {ln: {k: v.to(dev) for k, v in d.items()} for ln, d in params.items()}
+        s = {ln: {k: v.to(dev) for k, v in d.items()} for ln, d in state.items()}
+        raw = RawPreprocessProgram(Program(graph, train=True, device=dev), crop=64)
+        ts, metrics = make_train_step(raw, cfg)(init_train_state(p, s), batch)
+        assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
+        updates.append(torch.cat([(ts.params[ln][k] - p[ln][k]).flatten().cpu()
+                                  for ln in sorted(p) for k in sorted(p[ln])]))
+    rel = ((updates[1] - updates[0]).norm() / updates[0].norm()).item()
+    assert rel < F32_UPDATE_REL_L2_BOUND, rel

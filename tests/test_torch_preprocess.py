@@ -79,6 +79,45 @@ def test_build_without_nvcc_raises_a_clear_error(monkeypatch, tmp_path):
         _build.build("preprocess")
 
 
+_FAKE_NVCC = """#!/bin/sh
+# stands in for nvcc: logs its source, waits until every build has started,
+# then fails on a source that says FAIL or writes what it saw to -o
+while [ "$1" != "-o" ]; do shift; done
+out="$2"; src="$3"
+echo "$src" >> "$LOG"
+i=0
+while [ "$(wc -l < "$LOG")" -lt "$EXPECT" ] && [ $i -lt 50 ]; do sleep 0.1; i=$((i+1)); done
+if grep -q FAIL "$src"; then echo "error in $src"; exit 3; fi
+if [ "$(wc -l < "$LOG")" -ge "$EXPECT" ]; then echo together > "$out"; else echo alone > "$out"; fi
+"""
+
+
+@pytest.mark.parametrize("fail", [False, True])
+def test_build_all_runs_one_nvcc_per_source_together(monkeypatch, tmp_path, fail):
+    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    (csrc / "a.cu").write_text("a")
+    (csrc / "b.cu").write_text("FAIL" if fail else "b")
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(_FAKE_NVCC)
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", build)
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(nvcc))
+    monkeypatch.setenv("LOG", str(tmp_path / "log"))
+    monkeypatch.setenv("EXPECT", "2")
+    if fail:
+        with pytest.raises(RuntimeError, match="building b.cu"):
+            _build.build_all(["a", "b"])
+        assert not any(p.name.startswith("libb") for p in build.iterdir())
+    else:
+        outs = _build.build_all(["a", "b"])
+        assert [p.name.split("-")[0] for p in outs] == ["liba", "libb"]
+        assert all(p.read_text().strip() == "together" for p in outs)
+        assert _build.build_all(["a", "b"]) == outs  # built: nothing to do
+    assert sorted(p.name for p in build.iterdir() if not p.name.startswith("lib")) == []
+
+
 def _plain(frames, h_off, w_off):
     return preprocess.crop_normalize_reference(
         torch.from_numpy(frames), torch.from_numpy(h_off), torch.from_numpy(w_off),
