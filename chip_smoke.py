@@ -6,8 +6,8 @@
 Phases (every failure raises; the exit code is then non-zero):
 
 1. The card's name and power limit (nvidia-smi), and the build of the CUDA
-   kernels ``eco_tpu_torch/csrc/{preprocess,poolfuse}.cu``, one nvcc each,
-   started together.
+   kernels ``eco_tpu_torch/csrc/{preprocess,poolfuse,qconv}.cu``, one nvcc
+   each, started together.
 2. The kernel against its plain PyTorch version on the card at the serving
    shape (8, 16, 256, 340, 3) uint8, random in-range offsets and mirrors, in
    bf16, f32 and int8: the outputs must be equal (``torch.equal``).  Both are
@@ -19,11 +19,13 @@ Phases (every failure raises; the exit code is then non-zero):
    (8, 400) and sum to 1; the kernel must have launched once per request.
    The logits are compared with an f32 run of the same server (TF32 off),
    and that run with the f32 server on the CPU for two of the videos.
-4. K2, the fused 3x3/s2 max pool, against its plain PyTorch version at
-   ECO-Lite's pool1 (128, 112, 112, 64) and pool2 (128, 56, 56, 192) shapes,
-   in bf16 and f32, plain, with ReLU and with a seeded affine: equal
-   (``torch.equal``).  Then K2, its plain version and the ``pool_nd`` route
-   it replaces (pad + ``max_pool2d``) timed in bf16.
+4. K2, the fused 3x3/s2 max pool, against its plain PyTorch version at the
+   four shapes serving gives it: pool1 (128, 112, 112, 64) and pool2
+   (128, 56, 56, 192), and ECO-Full's inception_3c_pool (128, 28, 28, 320)
+   and inception_4e_pool (128, 14, 14, 608), in bf16 and f32, plain, with
+   ReLU and with a seeded affine: equal (``torch.equal``).  Then K2, its
+   plain version and the ``pool_nd`` route it replaces (pad +
+   ``max_pool2d``) timed in bf16.
 5. Training at full width: the ECO-Lite Kinetics TRAIN graph (dropout 0.3)
    through ``RawPreprocessProgram`` (K1 in the step) and the ``Trainer``,
    bf16, Nesterov as ``examples/train_synthetic.py``, on one repeated batch
@@ -37,7 +39,27 @@ Phases (every failure raises; the exit code is then non-zero):
    and pool2) and the test metrics agree within 1e-6 relative.
 8. The bf16 serving requests again, alternately without and with
    ``ECO_PALLAS_POOL=1`` (K2 twice a request): median request times side by
-   side.
+   side, and the probabilities with K2 equal those without (max pool is
+   exact).
+9. K3, the int8 convolution, against its plain PyTorch version at the shapes
+   of quantized ECO-Lite at batch 8 (conv1 on K1's int8 output, a 2D 3x3, a
+   3D 3x3x3/s2 and the fc) and of ECO-Full's 2D branch (a merged 1x1 and a
+   3x3/s2 at 14x14), in f32, bf16 and int8 out: equal (``torch.equal``).
+   Then K3, its plain version and the bf16 cuDNN conv of the same shape
+   timed.
+10. Full-width ECO-Full Kinetics (``fc8N``) served as in phase 3, with the
+    same checks, then again without and with ``ECO_PALLAS_POOL=1`` (K2 four
+    times a request: pool1, pool2, inception_3c_pool and inception_4e_pool).
+11. int8 serving of ECO-Lite and of ECO-Full: ``quantize_for_serving`` of the
+    optimized graph, calibrated on two batches of K1's f32 clips, served in
+    bf16 by ``UInt8Server(int8_input=True)`` (K1 emits int8 into conv1): K1
+    once and K3 once per int8 layer a request.  One more request holds every
+    K3 call against its plain version on the same operands (``torch.equal``).
+    The int8 program in f32 on two videos, layer by layer on the card's
+    inputs, card against CPU: int8 tops equal, float tops within a stated
+    bound.  End to end, its f32 logits, card against CPU, agree within a
+    stated bound, and in argmax where the top-1 margin is clear; its bf16
+    logits are held to the float server's.
 
 Prints a ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it fails and
@@ -59,10 +81,11 @@ import time
 import torch
 
 from eco_tpu_torch.apps import RawPreprocessProgram, UInt8Server
-from eco_tpu_torch.convert import optimize_for_inference
+from eco_tpu_torch.convert import optimize_for_inference, quantize_for_serving
 from eco_tpu_torch.models import build_eco_lite, get_model
-from eco_tpu_torch.ops import _build, pool, poolfuse, preprocess
-from eco_tpu_torch.runtime import Program
+from eco_tpu_torch.ops import _build, pool, poolfuse, preprocess, qconv
+from eco_tpu_torch.runtime import Program, get_impl
+from eco_tpu_torch.runtime.executor import Context
 from eco_tpu_torch.train import SolverConfig, Trainer, init_train_state, make_train_step
 
 SEED = 0
@@ -78,8 +101,11 @@ BF16_LOGITS_REL_L2_BOUND = 3e-2
 # other orders, ~1e-6 relative after ~40 layers.
 F32_CARD_VS_CPU_REL_L2_BOUND = 1e-4
 PROBS_SUM_TOL = 1e-2
+# every max pool that K2 takes on the serving paths (ECO-Full has all four)
 POOL_SHAPES = {"pool1": (BATCH * SEGMENTS, 112, 112, 64),
-               "pool2": (BATCH * SEGMENTS, 56, 56, 192)}
+               "pool2": (BATCH * SEGMENTS, 56, 56, 192),
+               "inception_3c_pool": (BATCH * SEGMENTS, 28, 28, 320),
+               "inception_4e_pool": (BATCH * SEGMENTS, 14, 14, 608)}
 TRAIN_STEPS = 10
 NUM_CLASSES = 400
 # examples/train_synthetic.py's solver
@@ -93,6 +119,40 @@ SOLVER = dict(base_lr=0.005, lr_policy="fixed", momentum=0.9, weight_decay=5e-4,
 # other orders.
 F32_UPDATE_REL_L2_BOUND = 5e-2
 TEST_METRIC_REL_TOL = 1e-6
+# K3's checks and timings, at the shapes of quantized full-width ECO-Lite and
+# ECO-Full at batch 8: (input, C_out, kernel, stride, pad); the fc runs as a
+# 1x1 conv, and the 1x1 is inception_4a's three sibling 1x1s merged by
+# optimize_for_inference (224 + 64 + 96 outputs)
+QCONV_SHAPES = {
+    "conv1_7x7_s2": ((BATCH * SEGMENTS, CROP, CROP, 3), 64, (7, 7), 2, 3),
+    "inception_3a_3x3": ((BATCH * SEGMENTS, 28, 28, 64), 64, (3, 3), 1, 1),
+    "res4a_1": ((BATCH, SEGMENTS, 28, 28, 128), 256, (3, 3, 3), 2, 1),
+    "fc8": ((BATCH, 1, 1, 512), NUM_CLASSES, (1, 1), 1, 0),
+    "inception_4a_1x1__merged": ((BATCH * SEGMENTS, 14, 14, 576), 384, (1, 1), 1, 0),
+    "inception_4e_double_3x3_2": ((BATCH * SEGMENTS, 14, 14, 256), 256, (3, 3), 2, 1),
+}
+QCONV_ITERS = 100
+CALIB_BATCHES = 2
+# The int8 program in f32, layer by layer, each layer on the card's inputs on
+# the card and on the CPU: int8 tops equal, float tops (average and global
+# pools, softmax: sums in other orders) within this relative L2; 1.7e-7 the
+# largest measured at full width on an H100
+INT8_LAYER_F32_REL_L2_BOUND = 1e-6
+# The same program end to end, card against CPU: those last-bit differences
+# flip int8 values by 1 at the next quantize, and the flips compound layer
+# after layer.  3x the largest relative L2 of the logits measured on an H100
+# over 4 requests of 2 videos, ECO-Lite and ECO-Full (0 to 7.4e-3)
+INT8_CARD_VS_CPU_REL_L2_BOUND = 2.2e-2
+# ...and the argmax must agree for every video whose CPU top-1 margin is above
+# this (3x the largest max |difference| of the logits measured, 0.108).
+# Random-weight ECO-Full logits sit near uniform: a top-1 margin of 7.7e-5
+# was measured, and there the card's argmax may be the runner-up.
+INT8_ARGMAX_MARGIN = 0.33
+# int8 logits against the float server's, both bf16: 3x the largest relative
+# L2 measured on the CPU over 4 requests of 2 videos, S=4, f32 and bf16 with
+# the same calibration: 3.25e-2 for ECO-Lite at crop 64, 2.09e-2 for ECO-Full
+# at crop 224 (its 7x7 pool needs 224)
+INT8_VS_FLOAT_REL_L2_BOUND = {"eco_lite_kinetics": 9.8e-2, "eco_full_kinetics": 6.3e-2}
 
 
 def _card() -> str:
@@ -173,28 +233,14 @@ def _requests(count: int):
     return reqs
 
 
-def serve(dev, card: str):
-    """The main path at full width; returns the kernel's launch count, and
-    the server and its requests for phase 8."""
-    t0 = time.perf_counter()
-    graph = get_model("eco_lite_kinetics", batch=BATCH, num_segments=SEGMENTS,
-                      crop_size=CROP)
-    params, state = Program(graph, device=dev).init(
-        torch.Generator().manual_seed(SEED), {"data": graph.inputs["data"]})
-    g_opt, p_opt, s_opt = optimize_for_inference(graph, params, state)
-    server = UInt8Server(Program(g_opt, device=dev), p_opt, s_opt, crop=CROP, mean=MEAN)
-    reqs = _requests(1 + TIMED_REQUESTS)
-    torch.cuda.synchronize()
-    print(f"setup: {len(server.program.exec_layers)} layers after optimize, "
-          f"{time.perf_counter() - t0:.1f} s")
-
-    torch.backends.cudnn.benchmark = True
-    torch.cuda.reset_peak_memory_stats(dev)
+def _timed_requests(server, reqs):
+    """One warm-up request (cuDNN autotune), then the others timed with CUDA
+    events; returns the outputs, the timed requests' ms in order, videos/s
+    over them, and the warm-up's seconds."""
     events = [torch.cuda.Event(enable_timing=True) for _ in range(len(reqs))]
-    preprocess.crop_normalize_launches = 0
     t0 = time.perf_counter()
     frames, aug = reqs[0]
-    outs = [server(frames, **aug)]  # warm-up (cuDNN autotune)
+    outs = [server(frames, **aug)]
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     events[0].record()
@@ -202,22 +248,15 @@ def serve(dev, card: str):
         outs.append(server(frames, **aug))
         events[i].record()
     torch.cuda.synchronize()
-    launches = preprocess.crop_normalize_launches
-    if launches != len(reqs):
-        raise AssertionError(f"K1 launched {launches} times for {len(reqs)} requests")
     per_req = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
-    total = events[0].elapsed_time(events[-1])
-    print(f"serving: {len(reqs)} requests ({BATCH} videos each), K1 launches "
-          f"{launches}; warm-up {warm_s:.2f} s; timed requests (ms, in order) "
-          f"{[round(t, 3) for t in per_req]}, median "
-          f"{statistics.median(per_req):.3f} ms; "
-          f"{TIMED_REQUESTS * BATCH / (total / 1e3):.1f} videos/s bf16, "
-          f"host->device copy included; peak memory "
-          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; {card}")
+    videos_s = (len(reqs) - 1) * BATCH / (events[0].elapsed_time(events[-1]) / 1e3)
+    return outs, per_req, videos_s, warm_s
 
+
+def _check_probs(outs):
     for probs in outs:
         probs = probs.float()
-        if tuple(probs.shape) != (BATCH, 400):
+        if tuple(probs.shape) != (BATCH, NUM_CLASSES):
             raise AssertionError(f"probs shape {tuple(probs.shape)}")
         if not torch.isfinite(probs).all():
             raise AssertionError("non-finite probabilities")
@@ -227,33 +266,76 @@ def serve(dev, card: str):
     print(f"probs: dtype {outs[0].dtype}, shape {tuple(outs[0].shape)}, finite, "
           f"rows sum to 1 within {PROBS_SUM_TOL}")
 
+
+def _rel_l2(a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def _to(tree, dev):
+    return {ln: {k: v.to(dev) for k, v in d.items()} for ln, d in tree.items()}
+
+
+def _f32_logits_card_and_cpu(dev, graph, params, state, request, fc: str):
+    """The f32 server (TF32 off) of ``graph`` on the card, and on the CPU for
+    two of the videos; returns both logits."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    frames, aug = request
+    card = UInt8Server(Program(graph, compute_dtype=torch.float32, device=dev), params, state,
+                       crop=CROP, mean=MEAN, output=fc)(frames, **aug)
+    cpu = UInt8Server(Program(graph, compute_dtype=torch.float32), _to(params, "cpu"),
+                      _to(state, "cpu"), crop=CROP, mean=MEAN, output=fc)(
+        frames[:2], **{k: v[:2] for k, v in aug.items()})
+    return card, cpu
+
+
+def serve_float(dev, card: str, model: str, fc: str, reqs):
+    """Full-width bf16 serving of ``model``, optimized for inference; returns
+    the server, its graph, params and state, K1's launches and the bf16
+    logits of the second request."""
+    t0 = time.perf_counter()
+    graph = get_model(model, batch=BATCH, num_segments=SEGMENTS, crop_size=CROP)
+    params, state = Program(graph, device=dev).init(
+        torch.Generator().manual_seed(SEED), {"data": graph.inputs["data"]})
+    g_opt, p_opt, s_opt = optimize_for_inference(graph, params, state)
+    server = UInt8Server(Program(g_opt, device=dev), p_opt, s_opt, crop=CROP, mean=MEAN)
+    torch.cuda.synchronize()
+    print(f"{model} setup: {len(server.program.exec_layers)} layers after optimize, "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    torch.backends.cudnn.benchmark = True
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_counts()
+    outs, per_req, videos_s, warm_s = _timed_requests(server, reqs)
+    launches = _counts()
+    if launches != (len(reqs), 0, 0):
+        raise AssertionError(f"{model} serving launched K1, K2, K3 {launches} times "
+                             f"for {len(reqs)} requests")
+    print(f"{model} serving: {len(reqs)} requests ({BATCH} videos each), K1 launches "
+          f"{launches[0]}; warm-up {warm_s:.2f} s; timed requests (ms, in order) "
+          f"{[round(t, 3) for t in per_req]}, median "
+          f"{statistics.median(per_req):.3f} ms; {videos_s:.1f} videos/s bf16, "
+          f"host->device copy included; peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; {card}")
+    _check_probs(outs)
+
+    logits32, logits_cpu = _f32_logits_card_and_cpu(dev, g_opt, p_opt, s_opt, reqs[1], fc)
     frames, aug = reqs[1]
     logits16 = UInt8Server(Program(g_opt, device=dev), p_opt, s_opt, crop=CROP,
-                           mean=MEAN, output="fc8")(frames, **aug).float()
-    logits32 = UInt8Server(Program(g_opt, compute_dtype=torch.float32, device=dev),
-                           p_opt, s_opt, crop=CROP, mean=MEAN, output="fc8")(frames, **aug)
-    rel = ((logits16 - logits32).norm() / logits32.norm()).item()
-    print(f"logits bf16 vs f32 (TF32 off): rel L2 {rel:.6f} "
+                           mean=MEAN, output=fc)(frames, **aug)
+    rel = _rel_l2(logits16, logits32)
+    print(f"{model} logits bf16 vs f32 (TF32 off): rel L2 {rel:.6f} "
           f"(bound {BF16_LOGITS_REL_L2_BOUND}); f32 |logits| max "
           f"{logits32.abs().max().item():.4f}")
     if not rel <= BF16_LOGITS_REL_L2_BOUND:
-        raise AssertionError(f"bf16 logits off f32 by rel L2 {rel}")
-
-    # The same f32 server on the CPU (the path the tests hold against the
-    # JAX reference) for two of the videos.
-    cpu_p = {ln: {k: v.cpu() for k, v in d.items()} for ln, d in p_opt.items()}
-    cpu_s = {ln: {k: v.cpu() for k, v in d.items()} for ln, d in s_opt.items()}
-    logits_cpu = UInt8Server(Program(g_opt, compute_dtype=torch.float32), cpu_p, cpu_s,
-                             crop=CROP, mean=MEAN, output="fc8")(
-        frames[:2], **{k: v[:2] for k, v in aug.items()})
-    rel_cpu = ((logits32[:2].cpu() - logits_cpu).norm() / logits_cpu.norm()).item()
-    print(f"logits f32 card vs f32 CPU, 2 videos: rel L2 {rel_cpu:.3e} "
+        raise AssertionError(f"{model} bf16 logits off f32 by rel L2 {rel}")
+    # the f32 server on the CPU: the path the tests hold against the reference
+    rel_cpu = _rel_l2(logits32[:2].cpu(), logits_cpu)
+    print(f"{model} logits f32 card vs f32 CPU, 2 videos: rel L2 {rel_cpu:.3e} "
           f"(bound {F32_CARD_VS_CPU_REL_L2_BOUND})")
     if not rel_cpu <= F32_CARD_VS_CPU_REL_L2_BOUND:
-        raise AssertionError(f"f32 logits on the card off the CPU's by rel L2 {rel_cpu}")
-    return launches, server, reqs
+        raise AssertionError(f"{model} f32 logits on the card off the CPU's by rel L2 {rel_cpu}")
+    return server, (g_opt, p_opt, s_opt), launches[0], logits16
 
 
 @contextlib.contextmanager
@@ -273,17 +355,20 @@ def _pallas_pool(on: bool):
 def _reset_counts():
     preprocess.crop_normalize_launches = 0
     poolfuse.fused_maxpool_launches = 0
+    qconv.qconv_launches = 0
 
 
 def _counts():
+    """K1's, K2's and K3's launches since ``_reset_counts``."""
     torch.cuda.synchronize()
-    return preprocess.crop_normalize_launches, poolfuse.fused_maxpool_launches
+    return (preprocess.crop_normalize_launches, poolfuse.fused_maxpool_launches,
+            qconv.qconv_launches)
 
 
 def check_pool_kernel(dev) -> dict:
-    """K2 against its plain version at ECO-Lite's two pool shapes; returns
-    its largest error and the times of K2, its plain version and the
-    ``pool_nd`` route, summed over the two shapes."""
+    """K2 against its plain version at POOL_SHAPES; returns its largest
+    error and the times of K2, its plain version and the ``pool_nd`` route,
+    summed over the shapes."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
     max_err = 0.0
     times = {}
@@ -326,6 +411,79 @@ def check_pool_kernel(dev) -> dict:
               f"GB/s, route {moved / t['pool_nd_route_ms'] / 1e6:.1f} GB/s of 3350")
         times[name] = t
     total = {k: sum(t[k] for t in times.values()) for k in ("ms", "plain_ms", "pool_nd_route_ms")}
+    return {"max_abs_err": max_err, **total, "by_shape": times}
+
+
+def _qconv_case(dev, gen, name):
+    """Seeded int8 operands of K3 at one of QCONV_SHAPES: conv1's input is
+    K1's int8 output, the others uniform int8."""
+    shape, c_out, kernel, stride, pad = QCONV_SHAPES[name]
+    if name == "conv1_7x7_s2":
+        frames = torch.randint(0, 256, (BATCH, SEGMENTS, HEIGHT, WIDTH, 3),
+                               dtype=torch.uint8, device=dev, generator=gen)
+        centre = torch.full((BATCH,), (HEIGHT - CROP) // 2, device=dev)
+        x = preprocess.preprocess_on_device(
+            frames, centre, torch.full((BATCH,), (WIDTH - CROP) // 2, device=dev),
+            torch.zeros(BATCH, dtype=torch.bool, device=dev), crop=CROP, mean=MEAN,
+            act_scale=ACT_SCALE).reshape(shape)
+    else:
+        x = torch.randint(-127, 128, shape, dtype=torch.int8, device=dev, generator=gen)
+    w = torch.randint(-127, 128, (c_out, shape[-1], *kernel), dtype=torch.int8,
+                      device=dev, generator=gen)
+    scale_vec = torch.rand(c_out, device=dev, generator=gen) * 1e-3 + 1e-4
+    bias = torch.randn(c_out, device=dev, generator=gen)
+    kw = dict(stride=stride, pad=pad)
+    y = qconv.qconv_nd_reference(x, w, scale_vec, bias, **kw)
+    # int8 out at half the f32 range: some outputs clip, most round
+    out_scale = y.abs().max().item() / 127 / 2
+    return x, qconv.kernel_layout(w), scale_vec, bias, kw, out_scale
+
+
+def check_qconv_kernel(dev) -> dict:
+    """K3 against its plain version at QCONV_SHAPES in f32, bf16 and int8 out
+    (``torch.equal``); then K3, its plain version and the bf16 cuDNN conv of
+    the same shape timed, bf16 out.  Returns its largest error and the times
+    summed over the shapes."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    max_err = 0.0
+    times = {}
+    for name in QCONV_SHAPES:
+        x, w, scale_vec, bias, kw, out_scale = _qconv_case(dev, gen, name)
+        for out in (torch.float32, torch.bfloat16, torch.int8):
+            okw = dict(out_scale=out_scale) if out == torch.int8 else dict(out_dtype=out)
+            got = qconv.qconv_nd(x, w, scale_vec, bias, **kw, **okw)
+            want = qconv.qconv_nd_reference(x, w, scale_vec, bias, **kw, **okw)
+            torch.cuda.synchronize()
+            equal = torch.equal(got, want)
+            err = (got.float() - want.float()).abs().max().item()
+            print(f"K3 {name} {tuple(x.shape)} -> {tuple(got.shape)} {str(out):14s} "
+                  f"kernel vs plain: equal={equal} max_abs_err={err}")
+            if not equal:
+                raise AssertionError(f"K3 disagrees with its plain version: {name} {out}")
+            max_err = max(max_err, err)
+        nsp = x.ndim - 2
+        x16 = x.movedim(-1, 1).to(torch.bfloat16)
+        w16 = w.to(torch.bfloat16)
+        conv = {2: torch.nn.functional.conv2d, 3: torch.nn.functional.conv3d}[nsp]
+        kernel = lambda: qconv.qconv_nd(x, w, scale_vec, bias, **kw, out_dtype=torch.bfloat16)
+        plain = lambda: qconv.qconv_nd_reference(x, w, scale_vec, bias, **kw,
+                                                 out_dtype=torch.bfloat16)
+        cudnn = lambda: conv(x16, w16, bias.to(torch.bfloat16), **{
+            "stride": kw["stride"], "padding": kw["pad"]})
+        # plain, cuDNN, kernel, kernel, cuDNN, plain: drift hits all alike
+        p1, c1, k1, k2, c2, p2 = (_ms_per_call(f, QCONV_ITERS) for f in
+                                  (plain, cudnn, kernel, kernel, cudnn, plain))
+        t = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "cudnn_bf16_ms": (c1 + c2) / 2}
+        out_pixels = math.prod(got.shape[:-1])
+        macs = out_pixels * w.shape[0] * math.prod(w.shape[1:])
+        print(f"K3 bf16-out {name}, {QCONV_ITERS} launches per block: kernel "
+              f"{t['ms']:.4f} ms ({k1:.4f}, {k2:.4f}), plain (f64 conv) "
+              f"{t['plain_ms']:.4f} ms ({p1:.4f}, {p2:.4f}), cuDNN bf16 conv "
+              f"{t['cudnn_bf16_ms']:.4f} ms ({c1:.4f}, {c2:.4f}); "
+              f"{2 * macs / 1e9:.4g} GOP -> kernel {2 * macs / t['ms'] / 1e9:.1f} TOP/s "
+              f"of 1979 int8, cuDNN {2 * macs / t['cudnn_bf16_ms'] / 1e9:.1f} TFLOP/s")
+        times[name] = t
+    total = {k: sum(t[k] for t in times.values()) for k in ("ms", "plain_ms", "cudnn_bf16_ms")}
     return {"max_abs_err": max_err, **total, "by_shape": times}
 
 
@@ -381,7 +539,7 @@ def train(dev, card: str):
     t0 = time.perf_counter()
     ts = trainer.solve(ts, itertools.repeat(batch), hooks=[
         lambda it, _ts, m: seen.append((it, float(m["loss"]), float(m["grad_norm"])))])
-    k1, k2 = _counts()
+    k1, k2, k3 = _counts()
     wall = time.perf_counter() - t0
     per_step = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
     total = events[0].elapsed_time(events[-1])
@@ -401,8 +559,8 @@ def train(dev, card: str):
         raise AssertionError("non-finite loss or gradient norm")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"loss did not fall: {losses[0]} -> {losses[-1]}")
-    if k1 != 1 + TRAIN_STEPS or k2 != 0:
-        raise AssertionError(f"training launched K1 {k1} and K2 {k2} times")
+    if k1 != 1 + TRAIN_STEPS or k2 != 0 or k3 != 0:
+        raise AssertionError(f"training launched K1 {k1}, K2 {k2} and K3 {k3} times")
     return trainer, ts, batch, k1
 
 
@@ -420,8 +578,7 @@ def f32_step_card_vs_cpu(dev, batch):
     updates, notes = [], []
     for where in ("cpu", dev):
         t0 = time.perf_counter()
-        p = {ln: {k: v.to(where) for k, v in d.items()} for ln, d in params.items()}
-        s = {ln: {k: v.to(where) for k, v in d.items()} for ln, d in state.items()}
+        p, s = _to(params, where), _to(state, where)
         prog = RawPreprocessProgram(Program(graph, train=True, device=where), crop=CROP, mean=MEAN)
         ts, m = make_train_step(prog, SolverConfig(**SOLVER))(init_train_state(p, s), micro)
         updates.append(torch.cat([(ts.params[ln][k] - p[ln][k]).flatten().cpu()
@@ -445,10 +602,10 @@ def test_pass(trainer, ts, batches) -> int:
         with _pallas_pool(on):
             _reset_counts()
             results[on] = trainer.test(ts, batches)
-            k1, k2 = _counts()
+            k1, k2, k3 = _counts()
         print(f"test pass ECO_PALLAS_POOL={int(on)}: {len(batches)} batches of {BATCH} "
               f"videos, {results[on]}; K1 launches {k1}, K2 launches {k2}")
-        if k1 != len(batches) or k2 != (2 * len(batches) if on else 0):
+        if k1 != len(batches) or k2 != (2 * len(batches) if on else 0) or k3:
             raise AssertionError(f"test pass launched K1 {k1} and K2 {k2} times")
     torch.backends.cudnn.deterministic = deterministic
     for key in ("top1", "top5", "loss"):
@@ -459,7 +616,8 @@ def test_pass(trainer, ts, batches) -> int:
     return k2
 
 
-def serve_with_pool_kernel(server, reqs, card: str) -> tuple[int, int]:
+def serve_with_pool_kernel(server, reqs, card: str, model: str,
+                           k2_per_request: int) -> tuple[int, int]:
     """The serving requests in blocks without, with, with and without K2;
     returns K1's and K2's launches in the blocks with it."""
     times = {False: [], True: []}
@@ -473,22 +631,174 @@ def serve_with_pool_kernel(server, reqs, card: str) -> tuple[int, int]:
             for i, (frames, aug) in enumerate(reqs, start=1):
                 outs[on] = server(frames, **aug)
                 events[i].record()
-            k1, k2 = _counts()
+            k1, k2, k3 = _counts()
         times[on] += [a.elapsed_time(b) for a, b in zip(events, events[1:])]
-        if k1 != len(reqs) or k2 != (2 * len(reqs) if on else 0):
-            raise AssertionError(f"serving launched K1 {k1} and K2 {k2} times")
+        if k1 != len(reqs) or k2 != (k2_per_request * len(reqs) if on else 0) or k3:
+            raise AssertionError(f"{model} serving launched K1 {k1}, K2 {k2} and K3 {k3} times")
         if on:
             launches = [launches[0] + k1, launches[1] + k2]
     probs = outs[True].float()
     if not torch.isfinite(probs).all() or (probs.sum(-1) - 1).abs().max() > PROBS_SUM_TOL:
-        raise AssertionError("serving with K2 gave bad probabilities")
-    print(f"serving with K2 (ECO_PALLAS_POOL=1): median "
+        raise AssertionError(f"{model} serving with K2 gave bad probabilities")
+    # max pool is exact: K2 and the route it replaces give the same bits
+    if not torch.equal(outs[True], outs[False]):
+        raise AssertionError(f"{model} probs with K2 differ from those without")
+    print(f"{model} serving with K2 (ECO_PALLAS_POOL=1): median "
           f"{statistics.median(times[True]):.3f} ms per request of {BATCH} videos "
           f"({len(times[True])} requests) against {statistics.median(times[False]):.3f} ms "
           f"without ({len(times[False])}), blocks off/on/on/off; K2 launches "
-          f"{launches[1]} = 2 per request; last request's probs equal without K2: "
-          f"{torch.equal(outs[True], outs[False])}; {card}")
+          f"{launches[1]} = {k2_per_request} per request; last request's probs equal "
+          f"without K2: True; {card}")
     return launches[0], launches[1]
+
+
+def _calibration_batches(dev):
+    """CALIB_BATCHES batches of K1's f32 center crops of seeded uint8 frames."""
+    gen = torch.Generator().manual_seed(SEED + 4)
+    centre = [torch.full((BATCH,), (size - CROP) // 2, device=dev) for size in (HEIGHT, WIDTH)]
+    batches = []
+    for _ in range(CALIB_BATCHES):
+        frames = torch.randint(0, 256, (BATCH, SEGMENTS, HEIGHT, WIDTH, 3), dtype=torch.uint8,
+                               generator=gen).to(dev)
+        batches.append({"data": preprocess.preprocess_on_device(
+            frames, *centre, torch.zeros(BATCH, dtype=torch.bool, device=dev), crop=CROP,
+            mean=MEAN, out_dtype=torch.float32)})
+    return batches
+
+
+def _k3_held_to_plain(server, request) -> list:
+    """One request of ``server`` with every K3 call held against its plain
+    version on the same operands (``torch.equal``); returns the input
+    shapes checked, one per call."""
+    kernel = qconv.qconv_nd
+    checked = []
+
+    def held(x_q, w_q, scale_vec, b=None, **kw):
+        got = kernel(x_q, w_q, scale_vec, b, **kw)
+        if not torch.equal(got, qconv.qconv_nd_reference(x_q, w_q, scale_vec, b, **kw)):
+            raise AssertionError(f"K3 disagrees with its plain version at input "
+                                 f"{tuple(x_q.shape)}, weights {tuple(w_q.shape)}, {kw}")
+        checked.append(tuple(x_q.shape))
+        return got
+
+    qconv.qconv_nd = held
+    try:
+        frames, aug = request
+        server(frames, **aug)
+        torch.cuda.synchronize()
+    finally:
+        qconv.qconv_nd = kernel
+    return checked
+
+
+def _int8_layers_card_vs_cpu(dev, graph, params, state, request) -> tuple[int, float]:
+    """The f32 int8 server's program on two videos of ``request``, layer by
+    layer: each layer runs on the card, and on the CPU on a copy of the
+    card's inputs, so a difference cannot compound.  int8 tops must be equal
+    and float tops within INT8_LAYER_F32_REL_L2_BOUND; returns the number of
+    int8 tops and the largest relative L2 of a float top."""
+    server = UInt8Server(Program(graph, compute_dtype=torch.float32, device=dev), params,
+                         state, crop=CROP, mean=MEAN)
+    prog = server.program
+    params_cpu, state_cpu = _to(params, "cpu"), _to(state, "cpu")
+    frames, aug = request
+    clips = preprocess.preprocess_on_device(
+        frames[:2].to(dev), *(aug[k][:2].to(dev) for k in ("h_off", "w_off", "mirror")),
+        crop=CROP, mean=MEAN, act_scale=server.in_scale)
+    ctx = Context(compute_dtype=prog.compute_dtype)
+    blobs = {"data": prog.cast_input(clips)}
+    n_int8, worst = 0, 0.0
+    for layer in prog.exec_layers:
+        impl = get_impl(layer.type)
+        ins = [blobs[b] for b in layer.bottoms]
+        want = impl.apply(layer, params_cpu.get(layer.name, {}), state_cpu.get(layer.name, {}),
+                          [x.cpu() for x in ins], ctx)
+        got = impl.apply(layer, params.get(layer.name, {}), state.get(layer.name, {}), ins, ctx)
+        for top, g, w in zip(layer.tops, got, want):
+            g = g.cpu()
+            if g.dtype != w.dtype:
+                raise AssertionError(f"{top}: {g.dtype} on the card, {w.dtype} on the CPU")
+            if g.dtype == torch.int8:
+                n_int8 += 1
+                if not torch.equal(g, w):
+                    raise AssertionError(f"int8 top {top} ({layer.type}) on the card differs "
+                                         f"from the CPU's in {int((g != w).sum())} values")
+            else:
+                rel = ((g.double() - w.double()).norm().item()
+                       / max(w.double().norm().item(), 1e-30))
+                worst = max(worst, rel)
+                if not rel <= INT8_LAYER_F32_REL_L2_BOUND:
+                    raise AssertionError(f"float top {top} ({layer.type}) on the card off the "
+                                         f"CPU's by rel L2 {rel}")
+        blobs.update(zip(layer.tops, got))
+    return n_int8, worst
+
+
+def serve_int8(dev, card: str, model: str, fc: str, float_side, reqs) -> tuple[int, int]:
+    """int8 post-training quantization of the optimized float graph, then
+    bf16 serving through ``UInt8Server(int8_input=True)``; returns K1's and
+    K3's launches on that path."""
+    graph, params, state, float_logits16 = float_side
+    t0 = time.perf_counter()
+    qprog, qp, qs, report = quantize_for_serving(
+        Program(graph, compute_dtype=torch.bfloat16, device=dev), params, state,
+        _calibration_batches(dev), fold=False, compute_dtype=torch.bfloat16)
+    server = UInt8Server(qprog, qp, qs, crop=CROP, mean=MEAN)
+    torch.cuda.synchronize()
+    n_q = len(report["quantized"])
+    if server.in_scale is None:
+        raise AssertionError(f"{model} int8: the int8 input plane is off")
+    print(f"{model} int8: {n_q} layers quantized, {len(report['chained'])} chained; int8 "
+          f"input plane on (K1 emits int8 at scale {server.in_scale:.6g}); quantize "
+          f"({CALIB_BATCHES} calibration batches) {time.perf_counter() - t0:.1f} s")
+
+    _reset_counts()
+    outs, per_req, videos_s, warm_s = _timed_requests(server, reqs)
+    launches = _counts()
+    if launches != (len(reqs), 0, n_q * len(reqs)):
+        raise AssertionError(f"{model} int8 serving launched K1, K2, K3 {launches} times for "
+                             f"{len(reqs)} requests of {n_q} int8 layers")
+    print(f"{model} int8 serving: {len(reqs)} requests ({BATCH} videos each), K1 (int8 "
+          f"out) launches {launches[0]}, K3 launches {launches[2]} = {n_q} per request; "
+          f"warm-up {warm_s:.2f} s; timed requests (ms, in order) "
+          f"{[round(t, 3) for t in per_req]}, median {statistics.median(per_req):.3f} ms; "
+          f"{videos_s:.1f} videos/s int8 + bf16, host->device copy included; {card}")
+    _check_probs(outs)
+    checked = _k3_held_to_plain(server, reqs[1])
+    if len(checked) != n_q:
+        raise AssertionError(f"{model} int8: {len(checked)} K3 calls held to the plain "
+                             f"version, {n_q} int8 layers")
+    print(f"{model} int8: each of the {n_q} K3 calls of one request equals its plain "
+          f"version on the same operands ({len(set(checked))} input shapes)")
+
+    n_int8, worst = _int8_layers_card_vs_cpu(dev, qprog.graph, qp, qs, reqs[1])
+    print(f"{model} int8 program in f32, layer by layer on the card's inputs, card vs CPU, "
+          f"2 videos: {n_int8} int8 tops equal, float tops within rel L2 {worst:.3e} (bound "
+          f"{INT8_LAYER_F32_REL_L2_BOUND})")
+    card32, cpu32 = _f32_logits_card_and_cpu(dev, qprog.graph, qp, qs, reqs[1], fc)
+    card32 = card32[:2].cpu()
+    rel_cpu = _rel_l2(card32, cpu32)
+    top2 = cpu32.topk(2, -1).values
+    margin = top2[:, 0] - top2[:, 1]
+    held = margin > INT8_ARGMAX_MARGIN
+    same = torch.equal(card32.argmax(-1)[held], cpu32.argmax(-1)[held])
+    print(f"{model} int8 logits f32 end to end, card vs CPU, 2 videos: rel L2 {rel_cpu:.3e} "
+          f"(bound {INT8_CARD_VS_CPU_REL_L2_BOUND}), max |diff| "
+          f"{(card32 - cpu32).abs().max().item():.4f}; argmax card "
+          f"{card32.argmax(-1).tolist()}, CPU {cpu32.argmax(-1).tolist()}, CPU top-1 margins "
+          f"{[round(m, 5) for m in margin.tolist()]}: equal on the {int(held.sum())} above "
+          f"{INT8_ARGMAX_MARGIN}: {same}")
+    if not (same and rel_cpu <= INT8_CARD_VS_CPU_REL_L2_BOUND):
+        raise AssertionError(f"{model} int8 f32 logits on the card off the CPU's")
+    frames, aug = reqs[1]
+    logits8 = UInt8Server(qprog, qp, qs, crop=CROP, mean=MEAN, output=fc)(frames, **aug)
+    rel = _rel_l2(logits8, float_logits16)
+    print(f"{model} logits int8 vs float, bf16, {BATCH} videos: rel L2 {rel:.4f} (bound "
+          f"{INT8_VS_FLOAT_REL_L2_BOUND[model]}); argmax agrees on "
+          f"{int((logits8.argmax(-1) == float_logits16.argmax(-1)).sum())} of {BATCH}")
+    if not rel <= INT8_VS_FLOAT_REL_L2_BOUND[model]:
+        raise AssertionError(f"{model} int8 logits off the float server's by rel L2 {rel}")
+    return launches[0], launches[2]
 
 
 def main() -> None:
@@ -501,28 +811,39 @@ def main() -> None:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    _build.build_all(["preprocess", "poolfuse"])
+    _build.build_all(["preprocess", "poolfuse", "qconv"])
     preprocess.build_kernel()
     poolfuse.build_kernel()
-    print(f"K1 + K2 build (two nvcc together) and load: {time.perf_counter() - t0:.2f} s")
+    qconv.build_kernel()
+    print(f"K1 + K2 + K3 build (three nvcc together) and load: {time.perf_counter() - t0:.2f} s")
 
     checked = check_kernel(dev)
-    _reset_counts()
-    launches, server, reqs = serve(dev, card)
-    k2_in_serve = _counts()[1]
-    if k2_in_serve:
-        raise AssertionError(f"K2 launched {k2_in_serve} times with ECO_PALLAS_POOL unset")
+    reqs = _requests(1 + TIMED_REQUESTS)
+    server, lite, k1_serve, lite_logits16 = serve_float(dev, card, "eco_lite_kinetics", "fc8",
+                                                        reqs)
     pool_checked = check_pool_kernel(dev)
     trainer, ts, batch, k1_train = train(dev, card)
     f32_step_card_vs_cpu(dev, batch)
     test_batches = [{k: v[0] for k, v in b.items()} for b in (batch, _train_batch(SEED + 3))]
     k2_test = test_pass(trainer, ts, test_batches)
-    k1_k2serve, k2_serve = serve_with_pool_kernel(server, reqs, card)
+    k1_k2serve, k2_serve = serve_with_pool_kernel(server, reqs, card, "eco_lite_kinetics", 2)
+    del trainer, ts, server
+    qconv_checked = check_qconv_kernel(dev)
+    server, full, k1_full, full_logits16 = serve_float(dev, card, "eco_full_kinetics", "fc8N",
+                                                       reqs)
+    k1_full_k2, k2_full = serve_with_pool_kernel(server, reqs, card, "eco_full_kinetics", 4)
+    del server
+    k1_int8_lite, k3_int8_lite = serve_int8(dev, card, "eco_lite_kinetics", "fc8",
+                                            lite + (lite_logits16,), reqs)
+    k1_int8_full, k3_int8_full = serve_int8(dev, card, "eco_full_kinetics", "fc8N",
+                                            full + (full_logits16,), reqs)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
-    k1_paths = {"serve": launches, "train": k1_train, "test": len(test_batches),
-                "serve_k2": k1_k2serve}
-    k2_paths = {"test": k2_test, "serve_k2": k2_serve}
+    k1_paths = {"serve": k1_serve, "train": k1_train, "test": len(test_batches),
+                "serve_k2": k1_k2serve, "serve_full": k1_full, "serve_full_k2": k1_full_k2,
+                "serve_int8_lite": k1_int8_lite, "serve_int8_full": k1_int8_full}
+    k2_paths = {"test": k2_test, "serve_k2": k2_serve, "serve_full_k2": k2_full}
+    k3_paths = {"serve_int8_lite": k3_int8_lite, "serve_int8_full": k3_int8_full}
     records = [
         {
             "name": "crop_normalize",
@@ -541,6 +862,15 @@ def main() -> None:
             "launches": sum(k2_paths.values()),
             "launches_by_path": k2_paths,
             **pool_checked,
+        },
+        {
+            "name": "qconv_nd",
+            "route": "cuda",
+            "source": "eco_tpu_torch/csrc/qconv.cu",
+            "replaces": "eco_tpu/ops/quant.py:69 conv_nd_int8 (XLA int8 conv)",
+            "launches": sum(k3_paths.values()),
+            "launches_by_path": k3_paths,
+            **qconv_checked,
         },
     ]
     print(json.dumps({"kernels": records}))

@@ -9,12 +9,15 @@ kernel with a kernel written by hand for Hopper.
                                 BN math inference and train, elementwise,
                                 dropout, fc, softmax, loss and accuracy) and
                                 the CUDA kernels (``csrc/``): uint8
-                                crop/normalize and the fused 3x3/s2 max pool.
+                                crop/normalize, the fused 3x3/s2 max pool
+                                and the int8 convolution (``ops/quant.py``).
 - ``eco_tpu_torch.runtime``  -- GraphSpec -> ``Program``, TEST or TRAIN.
 - ``eco_tpu_torch.convert``  -- weight bridge to and from ``eco_tpu``'s
-                                layout, sibling-1x1 merge and BN folding.
+                                layout, sibling-1x1 merge, BN folding and
+                                int8 post-training quantization.
 - ``eco_tpu_torch.apps``     -- ``UInt8Server``: uint8 frames in, class
-                                probabilities out; ``RawPreprocessProgram``:
+                                probabilities out, float or int8 graphs;
+                                ``RawPreprocessProgram``:
                                 the uint8 plane in front of any Program.
 - ``eco_tpu_torch.train``    -- Caffe-exact solver step, lr policies,
                                 checkpoints in the reference's files, and

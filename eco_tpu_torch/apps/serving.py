@@ -1,13 +1,11 @@
 """Raw uint8 frames in: the serving path and the raw train plane.
 
-Twin of ``eco_tpu/apps/serving.py``, float plane only.
-``UInt8Server`` is the crop/mirror/mean kernel (``ops/preprocess.py``)
-followed by an inference-optimized ``Program``; ``RawPreprocessProgram``
+Twin of ``eco_tpu/apps/serving.py``.  ``UInt8Server`` is the
+crop/mirror/mean kernel (``ops/preprocess.py``) followed by an
+inference-optimized or int8-quantized ``Program``; ``RawPreprocessProgram``
 puts the same kernel in front of any ``Program``, so a train step or a test
-pass consumes uint8 batches.  The host ships uint8, a quarter of the
-bytes of f32 clips, and does no per-frame math.  The int8 plane is not
-ported yet: a quantized graph (``qconvolution`` layers) already fails to
-build a ``Program``.
+pass consumes uint8 batches.  The host ships uint8, a quarter of the bytes
+of f32 clips, and does no per-frame math.
 """
 
 from __future__ import annotations
@@ -16,7 +14,9 @@ from typing import Optional
 
 import torch
 
+from eco_tpu_torch.convert.quantize import int8_input_rewrite
 from eco_tpu_torch.ops.preprocess import preprocess_on_device
+from eco_tpu_torch.runtime.executor import Program
 
 
 class UInt8Server:
@@ -26,16 +26,30 @@ class UInt8Server:
     device; they are moved to the program's device.  Crops are center unless
     offsets are given.
 
-    As in the reference, the kernel always emits **bf16** clips, and the
-    program's ``cast_input`` then decides the compute type: with
-    ``compute_dtype=None`` the model runs in bf16.
+    As in the reference, the kernel emits **bf16** clips (int8 on the int8
+    input plane below), and the program's ``cast_input`` then decides the
+    compute type: with ``compute_dtype=None`` a float model runs in bf16.
 
     ``output`` names the blob to return (default ``probs``); unlike the
     reference it may be any blob of the graph, e.g. the logits.
+
+    The int8 input plane (``int8_input=True``, the default, as in the
+    reference): when every consumer of the input is a quantized layer
+    (``convert.quantize.int8_input_rewrite``), the kernel quantizes the
+    clips itself at one shared scale and conv1 is fed int8, with no
+    separate quantize pass.  A no-op on float graphs.
     """
 
     def __init__(self, program, params, state, *, crop: int = 224,
-                 mean=(104.0, 117.0, 123.0), output: Optional[str] = None):
+                 mean=(104.0, 117.0, 123.0), output: Optional[str] = None,
+                 int8_input: bool = True):
+        self.in_scale = None
+        if int8_input:
+            graph, scale = int8_input_rewrite(program.graph)
+            if scale is not None:
+                program = Program(graph, compute_dtype=program.compute_dtype,
+                                  device=program.device)
+                self.in_scale = scale
         self.program = program
         self.params = params
         self.state = state
@@ -56,7 +70,8 @@ class UInt8Server:
         if mirror is None:
             mirror = torch.zeros((n,), dtype=torch.bool, device=dev)
         clips = preprocess_on_device(
-            frames_u8, h_off, w_off, mirror, crop=self.crop, mean=self.mean)
+            frames_u8, h_off, w_off, mirror, crop=self.crop, mean=self.mean,
+            act_scale=self.in_scale)
         outs, _ = self.program.apply(
             self.params, self.state, {"data": clips}, capture=[self.output])
         return outs[self.output]

@@ -1,5 +1,12 @@
 from eco_tpu_torch.convert.bridge import params_from_jax, params_to_jax
 from eco_tpu_torch.convert.load import fold_bn
+from eco_tpu_torch.convert.quantize import (
+    calibrate,
+    chain_int8,
+    int8_input_rewrite,
+    quantize_for_serving,
+    quantize_graph,
+)
 from eco_tpu_torch.spec.transforms import merge_sibling_1x1_convs
 
 

@@ -10,7 +10,11 @@ dicts of numpy arrays.  No JAX import is needed.
 A layer's type decides its weight layout.  Without a graph (``graph=None``,
 as for a checkpoint file) the rank decides: a ``w`` of rank 2 is an fc
 weight and one of rank >= 3 a convolution weight, the only two weight
-layouts that the port's layers have.
+layouts that the port's layers have.  The int8 layers of a quantized graph
+(``qconvolution``, ``qinnerproduct``) take the layouts of their float
+twins; an int8 convolution weight comes in ``ops.qconv.kernel_layout``
+memory order, (C_out, *k, C_in/g), so that K3 reads it with no copy, and
+its ``w_scale`` carries over unchanged.
 """
 
 from __future__ import annotations
@@ -21,14 +25,27 @@ import numpy as np
 import torch
 
 from eco_tpu.spec.graph import GraphSpec
+from eco_tpu_torch.ops.qconv import kernel_layout
+
+
+_WEIGHT_KINDS = {"convolution": "convolution", "qconvolution": "convolution",
+                 "innerproduct": "innerproduct", "qinnerproduct": "innerproduct"}
 
 
 def _weight_kind(layer_type: Optional[str], a: np.ndarray) -> str:
     if layer_type is None:
         return "convolution" if a.ndim >= 3 else "innerproduct"
-    if layer_type in ("convolution", "innerproduct"):
-        return layer_type
+    if layer_type in _WEIGHT_KINDS:
+        return _WEIGHT_KINDS[layer_type]
     raise NotImplementedError(f"no weight layout for layer type {layer_type!r}")
+
+
+def _to_torch_tensor(layer_type: Optional[str], pname: str, a: np.ndarray) -> torch.Tensor:
+    # a copy: arrays from JAX are read-only
+    t = torch.from_numpy(np.array(_to_torch_layout(layer_type, pname, a), order="C"))
+    if pname == "w" and t.dtype == torch.int8 and _weight_kind(layer_type, a) == "convolution":
+        t = kernel_layout(t)  # once here, so that K3 reads it with no copy
+    return t
 
 
 def _to_torch_layout(layer_type: Optional[str], pname: str, a: np.ndarray) -> np.ndarray:
@@ -66,10 +83,9 @@ def params_from_jax(graph: Optional[GraphSpec], params: Mapping, state: Mapping,
             out[lname] = {}
             for pname, value in entries.items():
                 a = np.asarray(value)
-                if layouts:
-                    a = _to_torch_layout(layer_type(lname), pname, a)
-                # a copy: arrays from JAX are read-only
-                out[lname][pname] = torch.from_numpy(np.array(a, order="C")).to(device)
+                t = (_to_torch_tensor(layer_type(lname), pname, a) if layouts
+                     else torch.from_numpy(np.array(a, order="C")))
+                out[lname][pname] = t.to(device)
         return out
 
     return convert(params, True), convert(state, False)

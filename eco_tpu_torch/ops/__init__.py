@@ -14,3 +14,9 @@ from eco_tpu_torch.ops.norm import bn_inference, bn_train, fold_scale_shift, sca
 from eco_tpu_torch.ops.pool import global_avg_pool, pool_nd
 from eco_tpu_torch.ops.poolfuse import fused_maxpool_3x3s2
 from eco_tpu_torch.ops.preprocess import preprocess_on_device
+from eco_tpu_torch.ops.quant import (
+    conv_nd_int8,
+    inner_product_int8,
+    quantize_act,
+    quantize_weight,
+)

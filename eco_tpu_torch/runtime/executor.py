@@ -17,7 +17,9 @@ the train step's gradient.
 Blobs keep the reference's physical layout, channels-last ``(N, *spatial,
 C)`` and contiguous for rank >= 3, ``(N, D)`` for matrices.  Params are in
 PyTorch's layout: conv ``w`` is ``(C_out, C_in/g, *k)``, fc ``w`` is
-``(D_out, D_in)`` (``eco_tpu_torch.convert.bridge`` converts).
+``(D_out, D_in)`` (``eco_tpu_torch.convert.bridge`` converts).  The int8
+layers of a quantized graph (``convert/quantize.py``) keep int8 weights in
+the same shapes, conv weights in ``ops.qconv.kernel_layout`` memory order.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from torch import nn
 from eco_tpu.spec.graph import TEST, TRAIN, GraphSpec, LayerSpec
 from eco_tpu.utils.shapes import normalize_spatial_param
 from eco_tpu_torch import ops
+from eco_tpu_torch.ops.qconv import kernel_layout
 from eco_tpu_torch.runtime.init import fill
 
 # Layer types whose tops are host-provided (the data boundary).
@@ -45,10 +48,12 @@ DATA_LAYER_TYPES = {
 @dataclass
 class Context:
     """What one ``apply`` hands every layer: the phase, the step's random
-    seed, and the BN statistics that train mode updates."""
+    seed, the compute type (None keeps the input's), and the BN statistics
+    that train mode updates."""
 
     train: bool = False
     seed: Optional[int] = None
+    compute_dtype: Optional[torch.dtype] = None
     new_state: dict = field(default_factory=dict)
 
     def layer_generator(self, layer_name: str, device) -> Optional[torch.Generator]:
@@ -64,8 +69,8 @@ class Context:
 class LayerImpl:
     """One graph-layer type: param/state declaration + apply.
 
-    ``param_specs`` maps name -> (shape, filler); ``state_specs`` maps
-    name -> (shape, fill value); all are f32.
+    ``param_specs`` maps name -> (shape, filler), f32, or (shape, filler,
+    dtype); ``state_specs`` maps name -> (shape, fill value), f32.
     """
 
     def param_specs(self, spec: LayerSpec, in_shapes) -> dict:
@@ -113,11 +118,100 @@ class _InnerProduct(LayerImpl):
         return out
 
     def apply(self, spec, params, state, inputs, ctx):
-        x = inputs[0]
-        if x.ndim > 2:
-            # Caffe flattens trailing axes in *logical* order.
-            x = ops.to_logical(x).reshape(x.shape[0], -1)
-        return [ops.inner_product(x, params["w"], params.get("b"))]
+        return [ops.inner_product(_flatten(inputs[0]), params["w"], params.get("b"))]
+
+
+def _flatten(x):
+    # Caffe flattens trailing axes in *logical* order.
+    return ops.to_logical(x).reshape(x.shape[0], -1) if x.ndim > 2 else x
+
+
+def _q_param_specs(base: dict) -> dict:
+    """A float layer's params with an int8 ``w`` and its per-output-channel
+    f32 ``w_scale``."""
+    wshape = base["w"][0]
+    out = {
+        "w": (wshape, {"type": "constant"}, torch.int8),
+        "w_scale": ((wshape[0],), {"type": "constant", "value": 1.0}),
+    }
+    if "b" in base:
+        out["b"] = base["b"]
+    return out
+
+
+def _serving_only(spec, ctx):
+    if ctx.train:
+        # round() has zero gradient almost everywhere: training would
+        # silently learn nothing through this layer
+        raise ValueError(
+            f"int8 layer {spec.name!r} is serving-only; train the float model "
+            "and re-quantize (convert.quantize)")
+
+
+def _out_scale(spec):
+    s = spec.opt("out_scale")
+    return float(s) if s is not None else None
+
+
+class _QConv(LayerImpl):
+    """int8 Convolution of a quantized graph: float or int8 in, int8 x int8
+    -> int32 in K3, float or int8 out.  ``options['act_scale']`` is the
+    calibrated input scale, ``options['out_scale']`` (an int8 chain) the
+    scale it emits int8 at."""
+
+    def param_specs(self, spec, in_shapes):
+        return _q_param_specs(_Conv().param_specs(spec, in_shapes))
+
+    def apply(self, spec, params, state, inputs, ctx):
+        _serving_only(spec, ctx)
+        return [ops.conv_nd_int8(
+            inputs[0], params["w"], params["w_scale"], params.get("b"),
+            act_scale=float(spec.opt("act_scale")),
+            stride=spec.opt("stride", 1), pad=spec.opt("pad", 0),
+            dilation=spec.opt("dilation", 1), groups=int(spec.opt("group", 1)),
+            out_scale=_out_scale(spec), out_dtype=ctx.compute_dtype,
+        )]
+
+
+class _QInnerProduct(LayerImpl):
+    """int8 InnerProduct (see _QConv)."""
+
+    def param_specs(self, spec, in_shapes):
+        return _q_param_specs(_InnerProduct().param_specs(spec, in_shapes))
+
+    def apply(self, spec, params, state, inputs, ctx):
+        _serving_only(spec, ctx)
+        return [ops.inner_product_int8(
+            _flatten(inputs[0]), params["w"], params["w_scale"], params.get("b"),
+            act_scale=float(spec.opt("act_scale")),
+            out_scale=_out_scale(spec), out_dtype=ctx.compute_dtype,
+        )]
+
+
+def _dequant(x, scale, dtype):
+    """int8 ``x`` at ``scale`` -> float: the in-op dequant of an int8-
+    accepting layer (``convert.quantize.chain_int8``), in f32, then cast to
+    ``dtype`` (None keeps f32)."""
+    return (x.float() * float(scale)).to(dtype or torch.float32)
+
+
+def _dequant_in_scale(spec, x, ctx):
+    """The single-input form (pools, global pool, Scale)."""
+    if x.dtype == torch.int8 and spec.opt("in_scale") is not None:
+        return _dequant(x, spec.opt("in_scale"), ctx.compute_dtype)
+    return x
+
+
+def _dequant_in_scales(spec, inputs, ctx):
+    """The multi-input form (eltwise, concat): each int8 input at its own
+    producer's scale; a float input passes."""
+    scales = spec.opt("in_scales")
+    if scales is None:
+        return inputs
+    return [
+        _dequant(x, s, ctx.compute_dtype) if x.dtype == torch.int8 and s is not None else x
+        for x, s in zip(inputs, scales)
+    ]
 
 
 class _BN(LayerImpl):
@@ -162,7 +256,8 @@ class _Scale(LayerImpl):
         return out
 
     def apply(self, spec, params, state, inputs, ctx):
-        return [ops.scale_shift(inputs[0], params["scale"], params.get("shift", 0.0))]
+        x = _dequant_in_scale(spec, inputs[0], ctx)
+        return [ops.scale_shift(x, params["scale"], params.get("shift", 0.0))]
 
 
 class _ReLU(LayerImpl):
@@ -182,7 +277,7 @@ class _Pooling(LayerImpl):
         if spec.opt("pad_h") is not None:
             p = (int(spec.opt("pad_h")), int(spec.opt("pad_w")))
         return [ops.pool_nd(
-            inputs[0], kernel=k, stride=s, pad=p,
+            _dequant_in_scale(spec, inputs[0], ctx), kernel=k, stride=s, pad=p,
             mode=str(spec.opt("pool", "max")),
             global_pooling=bool(spec.opt("global_pooling", False)),
         )]
@@ -199,11 +294,15 @@ class _Dropout(LayerImpl):
 
 class _Eltwise(LayerImpl):
     def apply(self, spec, params, state, inputs, ctx):
-        return [ops.eltwise(inputs, spec.opt("operation", "sum"), spec.opt("coeffs"))]
+        return [ops.eltwise(_dequant_in_scales(spec, inputs, ctx),
+                            spec.opt("operation", "sum"), spec.opt("coeffs"))]
 
 
 class _Concat(LayerImpl):
     def apply(self, spec, params, state, inputs, ctx):
+        # mixed-scale int8 inputs are dequantized here; int8 inputs all at one
+        # scale (no in_scales set) concatenate as int8
+        inputs = _dequant_in_scales(spec, inputs, ctx)
         # concat_dim is the V0/V1 legacy spelling of axis
         axis = int(spec.opt("axis", spec.opt("concat_dim", 1)))
         if inputs[0].ndim <= 2:
@@ -256,9 +355,21 @@ class _UnfoldSegments(LayerImpl):
         return [ops.unfold_segments(inputs[0], int(spec.opt("num_segments")))]
 
 
+class _SegmentConsensus(LayerImpl):
+    """Average segment consensus (ECO-Full's 2D branch): a global average
+    pool when the input still has spatial axes, then the mean over the
+    segments, (N*S, D) -> (N, D)."""
+
+    def apply(self, spec, params, state, inputs, ctx):
+        x = inputs[0]
+        if x.ndim > 2:
+            x = ops.global_avg_pool(x)
+        return [ops.segment_consensus(x, int(spec.opt("num_segments")))]
+
+
 class _GlobalAvgPool(LayerImpl):
     def apply(self, spec, params, state, inputs, ctx):
-        return [ops.global_avg_pool(inputs[0])]
+        return [ops.global_avg_pool(_dequant_in_scale(spec, inputs[0], ctx))]
 
 
 class _Softmax(LayerImpl):
@@ -297,6 +408,8 @@ class _Identity(LayerImpl):
 IMPLS: dict[str, LayerImpl] = {
     "convolution": _Conv(),
     "innerproduct": _InnerProduct(),
+    "qconvolution": _QConv(),
+    "qinnerproduct": _QInnerProduct(),
     "bn": _BN(),
     "scale": _Scale(),
     "relu": _ReLU(),
@@ -309,6 +422,7 @@ IMPLS: dict[str, LayerImpl] = {
     "flatten": _Flatten(),
     "fold_segments": _FoldSegments(),
     "unfold_segments": _UnfoldSegments(),
+    "segment_consensus": _SegmentConsensus(),
     "global_avg_pool": _GlobalAvgPool(),
     "softmax": _Softmax(),
     "softmaxwithloss": _SoftmaxWithLoss(),
@@ -383,14 +497,16 @@ class Program(nn.Module):
         }
         params: dict = {}
         state: dict = {}
-        ctx = Context(train=False)
+        ctx = Context(train=False, compute_dtype=self.compute_dtype)
         for layer, impl in zip(self.exec_layers, self._impls):
             ins = [blobs[b] for b in layer.bottoms]
             in_shapes = [tuple(x.shape) for x in ins]
-            lp = {
-                name: fill(generator, shape, torch.float32, filler).to(self.device)
-                for name, (shape, filler) in impl.param_specs(layer, in_shapes).items()
-            }
+            lp = {}
+            for name, (shape, filler, *dtype) in impl.param_specs(layer, in_shapes).items():
+                dtype = dtype[0] if dtype else torch.float32
+                lp[name] = fill(generator, shape, dtype, filler).to(self.device)
+                if dtype == torch.int8 and len(shape) > 2:
+                    lp[name] = kernel_layout(lp[name])  # K3's int8 conv weights
             ls = {
                 name: torch.full(shape, value, dtype=torch.float32, device=self.device)
                 for name, (shape, value) in impl.state_specs(layer, in_shapes).items()
@@ -425,7 +541,7 @@ class Program(nn.Module):
         if generator is not None:
             seed = int(torch.randint(0, 2**62, (1,), generator=generator,
                                      device=generator.device).item())
-        ctx = Context(train=self.train, seed=seed)
+        ctx = Context(train=self.train, seed=seed, compute_dtype=self.compute_dtype)
         blobs: dict[str, torch.Tensor] = {}
         for k, v in inputs.items():
             v = torch.as_tensor(v).to(self.device, non_blocking=True)

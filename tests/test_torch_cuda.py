@@ -1,6 +1,6 @@
-"""eco_tpu_torch on a CUDA device: the hand-written kernels against their
-plain versions, and the serving path and a train step on the card against
-the same on the CPU.
+"""eco_tpu_torch on a CUDA device: the hand-written kernels (K1, K2, K3)
+against their plain versions, and the serving path and a train step on the
+card against the same on the CPU.
 
 These tests need an NVIDIA GPU and nvcc, and skip without them.  The file
 imports no JAX, so it also runs where JAX is not installed:
@@ -12,9 +12,10 @@ import pytest
 import torch
 
 from eco_tpu_torch.apps import RawPreprocessProgram, UInt8Server
-from eco_tpu_torch.convert import optimize_for_inference
+from eco_tpu_torch.convert import optimize_for_inference, quantize_for_serving
 from eco_tpu_torch.models import build_eco_lite, get_model
-from eco_tpu_torch.ops import poolfuse, preprocess
+from eco_tpu_torch.ops import poolfuse, preprocess, qconv
+from eco_tpu_torch.ops.quant import conv_nd_int8, inner_product_int8, quantize_weight
 from eco_tpu_torch.ops.pool import pool_nd
 from eco_tpu_torch.runtime import Program
 from eco_tpu_torch.train import SolverConfig, init_train_state, make_train_step
@@ -104,6 +105,55 @@ def test_server_on_card_matches_cpu(cuda):
     torch.testing.assert_close(outs[1], outs[0], rtol=1e-4, atol=1e-4)
 
 
+def _card_and_cpu_logits(cuda, graph, params, state, crop, fc, frames, aug):
+    outs = []
+    for dev in ("cpu", cuda):
+        to = {ln: {k: v.to(dev) for k, v in d.items()} for ln, d in params.items()}
+        st = {ln: {k: v.to(dev) for k, v in d.items()} for ln, d in state.items()}
+        server = UInt8Server(Program(graph, compute_dtype=torch.float32, device=dev), to, st,
+                             crop=crop, output=fc)
+        outs.append(server(frames, **aug).cpu())
+    return outs
+
+
+def test_eco_full_server_on_card_matches_cpu(cuda):
+    """ECO-Full at crop 224 (its 7x7 pool needs it), S=4, N=2, f32 with TF32
+    off: as test_server_on_card_matches_cpu, ~180 layers deep."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    graph = get_model("eco_full_kinetics", batch=2, num_segments=4, crop_size=224)
+    params, state = Program(graph).init(torch.Generator().manual_seed(0),
+                                        {"data": graph.inputs["data"]})
+    g, p, s = optimize_for_inference(graph, params, state)
+    frames, h_off, w_off, mirror = (t.cpu() for t in _batch(cuda, 2, 4, 240, 256, 224))
+    aug = dict(h_off=h_off, w_off=w_off, mirror=mirror)
+    cpu, card = _card_and_cpu_logits(cuda, g, p, s, 224, "fc8N", frames, aug)
+    torch.testing.assert_close(card, cpu, rtol=1e-4, atol=1e-4)
+
+
+def test_int8_server_on_card_matches_cpu(cuda):
+    """int8 ECO-Lite at crop 64, S=4, N=2, f32 between int8 layers, int8
+    input plane on: K3 equals its plain version, so only the float ops
+    between int8 layers sum in other orders, and a one-ulp difference can
+    flip an int8 value downstream; argmax equal and relative L2 within 1e-2,
+    as chip_smoke.py holds the full-width model."""
+    graph = get_model("eco_lite_kinetics", batch=2, num_segments=4, crop_size=64)
+    params, state = Program(graph).init(torch.Generator().manual_seed(0),
+                                        {"data": graph.inputs["data"]})
+    g, p, s = optimize_for_inference(graph, params, state)
+    frames, h_off, w_off, mirror = (t.cpu() for t in _batch(cuda, 2, 4, 80, 96, 64))
+    clips = preprocess.preprocess_on_device(frames, h_off, w_off, mirror, crop=64, mean=MEAN,
+                                            out_dtype=torch.float32)
+    qprog, qp, qs, report = quantize_for_serving(Program(g), p, s, [{"data": clips}], fold=False)
+    assert len(report["quantized"]) == 29
+    before = qconv.qconv_launches
+    cpu, card = _card_and_cpu_logits(cuda, qprog.graph, qp, qs, 64, "fc8", frames,
+                                     dict(h_off=h_off, w_off=w_off, mirror=mirror))
+    assert qconv.qconv_launches == before + 29
+    assert torch.equal(card.argmax(-1), cpu.argmax(-1))
+    assert ((card - cpu).norm() / cpu.norm()).item() < 1e-2
+
+
 @pytest.mark.parametrize("shape", [(4, 112, 112, 64), (2, 56, 56, 192), (3, 8, 12, 5)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("variant", ["plain", "relu", "affine"])
@@ -191,3 +241,98 @@ def test_train_step_on_card_matches_cpu(cuda):
                                   for ln in sorted(p) for k in sorted(p[ln])]))
     rel = ((updates[1] - updates[0]).norm() / updates[0].norm()).item()
     assert rel < F32_UPDATE_REL_L2_BOUND, rel
+
+
+def _qconv_operands(dev, shape, c_out, kernel, groups, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randint(-127, 128, shape, dtype=torch.int8, device=dev, generator=gen)
+    w = torch.randint(-127, 128, (c_out, shape[-1] // groups, *kernel), dtype=torch.int8,
+                      device=dev, generator=gen)
+    scale_vec = torch.rand(c_out, device=dev, generator=gen) * 1e-3 + 1e-4
+    bias = torch.randn(c_out, device=dev, generator=gen)
+    return x, qconv.kernel_layout(w), scale_vec, bias
+
+
+@pytest.mark.parametrize("nsp", [1, 2, 3])
+@pytest.mark.parametrize("c_in,groups", [(3, 1), (32, 1), (64, 2), (24, 3)])
+@pytest.mark.parametrize("stride,pad,dilation", [(1, 0, 1), (2, 1, 1), (1, 2, 2)])
+@pytest.mark.parametrize("out", ["f32", "bf16", "int8"])
+def test_qconv_equals_plain_version(cuda, nsp, c_in, groups, stride, pad, dilation, out):
+    """C_in/g of 3 and 8 take the kernel's scalar path, 32 its 16-byte path;
+    C_out 70 and the output pixels leave ragged tiles."""
+    x, w, scale_vec, bias = _qconv_operands(cuda, (2,) + (9,) * nsp + (c_in,), 72 if groups == 3
+                                            else 70, (3,) * nsp, groups)
+    kw = dict(stride=stride, pad=pad, dilation=dilation, groups=groups)
+    if out == "int8":
+        kw["out_scale"] = qconv.qconv_nd_reference(x, w, scale_vec, bias, **kw).abs().max().item() / 200
+    else:
+        kw["out_dtype"] = torch.float32 if out == "f32" else torch.bfloat16
+    before = qconv.qconv_launches
+    got = qconv.qconv_nd(x, w, scale_vec, bias, **kw)
+    torch.cuda.synchronize()
+    assert qconv.qconv_launches == before + 1
+    assert got.is_contiguous()
+    assert torch.equal(got, qconv.qconv_nd_reference(x, w, scale_vec, bias, **kw))
+
+
+def test_qconv_without_bias_and_on_an_unaligned_input(cuda):
+    """A 1-byte offset view: no 16-byte vectors, the kernel's scalar path."""
+    x, w, scale_vec, _ = _qconv_operands(cuda, (2, 6, 7, 32), 16, (3, 3), 1)
+    base = torch.zeros(1 + x.numel(), dtype=torch.int8, device=cuda)
+    base[1:] = x.flatten()
+    xu = base[1:].view(x.shape)
+    assert xu.data_ptr() % 16 != 0
+    for xx in (x, xu):
+        got = qconv.qconv_nd(xx, w, scale_vec, None, pad=1)
+        assert torch.equal(got, qconv.qconv_nd_reference(x, w, scale_vec, None, pad=1))
+
+
+def test_int8_ops_take_the_kernel_on_the_card(cuda):
+    """ops.quant's conv and fc both launch K3, and equal their CPU results."""
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 5, 8, 8, 16, generator=gen)
+    w_q, w_scale = quantize_weight(torch.randn(24, 16, 3, 3, 3, generator=gen))
+    fx = torch.randn(4, 40, generator=gen)
+    fw_q, fw_scale = quantize_weight(torch.randn(10, 40, generator=gen))
+    b = torch.randn(24, generator=gen)
+    for out_scale in (None, 0.05):
+        before = qconv.qconv_launches
+        got = [conv_nd_int8(x.to(cuda), qconv.kernel_layout(w_q).to(cuda), w_scale.to(cuda),
+                            b.to(cuda), act_scale=0.02, pad=1, out_scale=out_scale),
+               inner_product_int8(fx.to(cuda), fw_q.to(cuda), fw_scale.to(cuda),
+                                  act_scale=0.03, out_scale=out_scale)]
+        assert qconv.qconv_launches == before + 2
+        want = [conv_nd_int8(x, w_q, w_scale, b, act_scale=0.02, pad=1, out_scale=out_scale),
+                inner_product_int8(fx, fw_q, fw_scale, act_scale=0.03, out_scale=out_scale)]
+        for g, wt in zip(got, want):
+            assert torch.equal(g.cpu(), wt)
+
+
+def test_qconv_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    x, w, scale_vec, bias = _qconv_operands(cuda, (2, 6, 7, 32), 16, (3, 3), 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        qconv.qconv_nd(x.transpose(1, 2), w, scale_vec, bias)
+    with pytest.raises(ValueError, match="scale_vec"):
+        qconv.qconv_nd(x, w, scale_vec.double(), bias)
+    with pytest.raises(ValueError, match="int8"):
+        qconv.qconv_nd(x.float(), w, scale_vec, bias)
+    with pytest.raises(ValueError, match="groups"):
+        qconv.qconv_nd(x, w, scale_vec, bias, groups=3)
+    with pytest.raises(ValueError, match="kernel_layout"):
+        qconv.qconv_nd(x, w.contiguous(), scale_vec, bias)
+
+
+@pytest.mark.parametrize("shape,kernel,stride,pad", [
+    ((4, 112, 112, 64), 3, 2, 0), ((2, 28, 28, 96), 3, 1, 1), ((2, 15, 15, 8), 3, 2, 0)])
+def test_int8_max_pool_on_card_matches_cpu(cuda, shape, kernel, stride, pad):
+    """The int8 max pool of the int8 chains (integer-minimum padding, no K2
+    even when it is asked for) equals the CPU's."""
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randint(-127, 128, shape, dtype=torch.int8, generator=gen)
+    want = pool_nd(x, kernel=kernel, stride=stride, pad=pad, mode="max")
+    before = poolfuse.fused_maxpool_launches
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("ECO_PALLAS_POOL", "1")
+        got = pool_nd(x.to(cuda), kernel=kernel, stride=stride, pad=pad, mode="max")
+    assert poolfuse.fused_maxpool_launches == before
+    assert got.dtype == torch.int8 and torch.equal(got.cpu(), want)

@@ -19,7 +19,9 @@ import eco_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(eco_tpu_torch.__path__, "eco_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 20, names
+assert len(names) >= 23, names
+assert {"eco_tpu_torch.ops.quant", "eco_tpu_torch.ops.qconv",
+        "eco_tpu_torch.convert.quantize"} <= set(names), names
 """
 
 _IMPORT_CHIP_SMOKE = """
