@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path once on one NVIDIA GPU, and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--k3-baseline QCONV_CU] [--k3-table DIR]
 
 Phases (every failure raises; the exit code is then non-zero):
 
@@ -11,7 +11,7 @@ Phases (every failure raises; the exit code is then non-zero):
 2. The kernel against its plain PyTorch version on the card at the serving
    shape (8, 16, 256, 340, 3) uint8, random in-range offsets and mirrors, in
    bf16, f32 and int8: the outputs must be equal (``torch.equal``).  Both are
-   timed with CUDA events.
+   timed with CUDA events, beside the kernel's bound (its bytes at 3.35 TB/s).
 3. Full-width ECO-Lite Kinetics (400 classes, 16 segments, 224 crop) at
    batch 8 with seeded random weights, optimized for inference, served by
    the bf16 ``UInt8Server`` from uint8 frames in pinned host memory: one
@@ -24,8 +24,8 @@ Phases (every failure raises; the exit code is then non-zero):
    (128, 56, 56, 192), and ECO-Full's inception_3c_pool (128, 28, 28, 320)
    and inception_4e_pool (128, 14, 14, 608), in bf16 and f32, plain, with
    ReLU and with a seeded affine: equal (``torch.equal``).  Then K2, its
-   plain version and the ``pool_nd`` route it replaces (pad +
-   ``max_pool2d``) timed in bf16.
+   plain version, the ``pool_nd`` route it replaces (pad + ``max_pool2d``)
+   and ``max_pool2d(ceil_mode=True)`` timed in bf16, beside K2's bound.
 5. Training at full width: the ECO-Lite Kinetics TRAIN graph (dropout 0.3)
    through ``RawPreprocessProgram`` (K1 in the step) and the ``Trainer``,
    bf16, Nesterov as ``examples/train_synthetic.py``, on one repeated batch
@@ -43,10 +43,11 @@ Phases (every failure raises; the exit code is then non-zero):
    exact).
 9. K3, the int8 convolution, against its plain PyTorch version at the shapes
    of quantized ECO-Lite at batch 8 (conv1 on K1's int8 output, a 2D 3x3, a
-   3D 3x3x3/s2 and the fc) and of ECO-Full's 2D branch (a merged 1x1 and a
-   3x3/s2 at 14x14), in f32, bf16 and int8 out: equal (``torch.equal``).
-   Then K3, its plain version and the bf16 cuDNN conv of the same shape
-   timed.
+   3D 3x3x3/s2, res5's 3x3x3 and the fc) and of ECO-Full's 2D branch (a
+   merged 1x1 and two 3x3/s2 at 14x14), in f32, bf16 and int8 out: equal
+   (``torch.equal``).  Then K3, the bf16 cuDNN conv of the same shape and,
+   at the 1x1 and fc shapes, ``torch._int_mm`` timed in CUDA graphs, its
+   plain version on the host's clock, beside K3's bound.
 10. Full-width ECO-Full Kinetics (``fc8N``) served as in phase 3, with the
     same checks, then again without and with ``ECO_PALLAS_POOL=1`` (K2 four
     times a request: pool1, pool2, inception_3c_pool and inception_4e_pool).
@@ -54,7 +55,12 @@ Phases (every failure raises; the exit code is then non-zero):
     optimized graph, calibrated on two batches of K1's f32 clips, served in
     bf16 by ``UInt8Server(int8_input=True)`` (K1 emits int8 into conv1): K1
     once and K3 once per int8 layer a request.  One more request holds every
-    K3 call against its plain version on the same operands (``torch.equal``).
+    K3 call against its plain version on the same operands (``torch.equal``),
+    and K3 is timed at every int8 layer of that request in CUDA graphs beside
+    its bound, the bf16 cuDNN conv and ``torch._int_mm`` (and, with
+    ``--k3-baseline``, an earlier K3 source with the previous C interface,
+    in turns), with the request's sums; with ``--k3-table DIR`` the
+    per-layer table goes to ``DIR/k3_layers_<model>.json``.
     The int8 program in f32 on two videos, layer by layer on the card's
     inputs, card against CPU: int8 tops equal, float tops within a stated
     bound.  End to end, its f32 logits, card against CPU, agree within a
@@ -68,7 +74,9 @@ prints no result.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
+import ctypes
 import itertools
 import json
 import math
@@ -87,6 +95,7 @@ from eco_tpu_torch.ops import _build, pool, poolfuse, preprocess, qconv
 from eco_tpu_torch.runtime import Program, get_impl
 from eco_tpu_torch.runtime.executor import Context
 from eco_tpu_torch.train import SolverConfig, Trainer, init_train_state, make_train_step
+from eco_tpu_torch.utils.shapes import normalize_spatial_param
 
 SEED = 0
 BATCH, SEGMENTS, HEIGHT, WIDTH, CROP = 8, 16, 256, 340, 224
@@ -130,8 +139,16 @@ QCONV_SHAPES = {
     "fc8": ((BATCH, 1, 1, 512), NUM_CLASSES, (1, 1), 1, 0),
     "inception_4a_1x1__merged": ((BATCH * SEGMENTS, 14, 14, 576), 384, (1, 1), 1, 0),
     "inception_4e_double_3x3_2": ((BATCH * SEGMENTS, 14, 14, 256), 256, (3, 3), 2, 1),
+    "inception_4e_3x3": ((BATCH * SEGMENTS, 14, 14, 128), 192, (3, 3), 2, 1),
+    "res5b_1": ((BATCH, 4, 7, 7, 512), 512, (3, 3, 3), 1, 1),
 }
 QCONV_ITERS = 100
+# K3 at every int8 layer of one request: launches per timed block
+LAYER_ITERS = 20
+# The card's published peaks (H100 SXM, dense; NVIDIA's data sheet) for the
+# bounds: the least time for a kernel's bytes or its operations
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
 CALIB_BATCHES = 2
 # The int8 program in f32, layer by layer, each layer on the card's inputs on
 # the card and on the CPU: int8 tops equal, float tops (average and global
@@ -176,6 +193,39 @@ def _ms_per_call(fn, iters: int = 100) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _graph_ms(fn, iters: int) -> float:
+    """Device time of one ``fn()``: ``iters`` calls captured in a CUDA graph,
+    the graph replayed five times between CUDA events.  The host's cost per
+    call (Python, ctypes) is left out, so a small kernel is timed, not the
+    interpreter in front of it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (5 * iters)
+
+
+def _bound_ms(moved_bytes: float, ops: float = 0.0, ops_per_s: float = INT8_OPS_PER_S):
+    """The least time the card could take: bytes over the memory rate or
+    operations over the peak rate, whichever is larger; and which it is."""
+    t_bytes, t_ops = moved_bytes / HBM_BYTES_PER_S, ops / ops_per_s
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def check_kernel(dev) -> dict:
     """K1 against its plain version at the serving shape; returns its largest
     error and both times."""
@@ -210,7 +260,12 @@ def check_kernel(dev) -> dict:
           f"kernel {ms:.4f} ms ({k1:.4f}, {k2:.4f}), "
           f"plain {plain_ms:.4f} ms ({p1:.4f}, {p2:.4f}); kernel moves "
           f"{moved / 1e6:.1f} MB -> {moved / ms / 1e6:.1f} GB/s")
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+    # the uint8 frames the windows cover (read once) and the bf16 crops
+    bound_ms, bound_by = _bound_ms(moved)
+    print(f"K1 bound {bound_ms:.4f} ms ({bound_by}: {moved / 1e6:.1f} MB at 3.35 TB/s); no "
+          f"single PyTorch call computes it")
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
 
 
 def _requests(count: int):
@@ -283,7 +338,7 @@ def _f32_logits_card_and_cpu(dev, graph, params, state, request, fc: str):
     frames, aug = request
     card = UInt8Server(Program(graph, compute_dtype=torch.float32, device=dev), params, state,
                        crop=CROP, mean=MEAN, output=fc)(frames, **aug)
-    cpu = UInt8Server(Program(graph, compute_dtype=torch.float32), _to(params, "cpu"),
+    cpu = UInt8Server(Program(graph, compute_dtype=torch.float32, device="cpu"), _to(params, "cpu"),
                       _to(state, "cpu"), crop=CROP, mean=MEAN, output=fc)(
         frames[:2], **{k: v[:2] for k, v in aug.items()})
     return card, cpu
@@ -397,21 +452,34 @@ def check_pool_kernel(dev) -> dict:
         kernel = lambda: poolfuse.fused_maxpool_3x3s2(y)
         plain = lambda: poolfuse.fused_maxpool_3x3s2_reference(y)
         route = lambda: pool.pool_nd(y, kernel=3, stride=2, mode="max")
-        # plain, route, kernel, kernel, route, plain: drift hits all alike
-        p1, r1, k1, k2, r2, p2 = (_ms_per_call(f) for f in
-                                  (plain, route, kernel, kernel, route, plain))
-        t = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "pool_nd_route_ms": (r1 + r2) / 2}
+        # ATen's pool on the channels-last NCHW view: with pad 0 and even H
+        # and W, ceil mode is Caffe's rule
+        library = lambda: torch.nn.functional.max_pool2d(y.permute(0, 3, 1, 2), 3, 2,
+                                                         ceil_mode=True)
+        if not torch.equal(library().permute(0, 2, 3, 1), poolfuse.fused_maxpool_3x3s2(y)):
+            raise AssertionError(f"max_pool2d(ceil_mode=True) is not K2's function at {name}")
+        # plain, route, library, kernel, kernel, library, route, plain
+        p1, r1, l1, k1, k2, l2, r2, p2 = (_ms_per_call(f) for f in
+                                          (plain, route, library, kernel, kernel, library,
+                                           route, plain))
+        t = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "pool_nd_route_ms": (r1 + r2) / 2,
+             "library_ms": (l1 + l2) / 2}
         n, h, w, c = shape
         moved = n * h * w * c * 2 + n * (h // 2) * (w // 2) * c * 2  # bf16 read + write
+        t["bound_ms"], _ = _bound_ms(moved)
         print(f"K2 bf16 {name} {shape}, 100 launches per block: kernel {t['ms']:.4f} ms "
               f"({k1:.4f}, {k2:.4f}), plain {t['plain_ms']:.4f} ms ({p1:.4f}, {p2:.4f}), "
               f"pool_nd route (pad + max_pool2d) {t['pool_nd_route_ms']:.4f} ms "
               f"({r1:.4f}, {r2:.4f}); kernel moves {moved / 1e6:.1f} MB -> "
               f"{moved / t['ms'] / 1e6:.1f} GB/s, plain {moved / t['plain_ms'] / 1e6:.1f} "
-              f"GB/s, route {moved / t['pool_nd_route_ms'] / 1e6:.1f} GB/s of 3350")
+              f"GB/s, route {moved / t['pool_nd_route_ms'] / 1e6:.1f} GB/s of 3350; "
+              f"max_pool2d(ceil_mode=True) {t['library_ms']:.4f} ms ({l1:.4f}, {l2:.4f}); "
+              f"bound {t['bound_ms']:.4f} ms (bytes), kernel at "
+              f"{t['bound_ms'] / t['ms']:.1%} of it")
         times[name] = t
-    total = {k: sum(t[k] for t in times.values()) for k in ("ms", "plain_ms", "pool_nd_route_ms")}
-    return {"max_abs_err": max_err, **total, "by_shape": times}
+    keys = ("ms", "plain_ms", "pool_nd_route_ms", "library_ms", "bound_ms")
+    total = {k: sum(t[k] for t in times.values()) for k in keys}
+    return {"max_abs_err": max_err, **total, "bound_by": "bytes", "by_shape": times}
 
 
 def _qconv_case(dev, gen, name):
@@ -439,11 +507,52 @@ def _qconv_case(dev, gen, name):
     return x, qconv.kernel_layout(w), scale_vec, bias, kw, out_scale
 
 
+def _k3_work(x, w, out):
+    """Operations and bytes of one K3 call: 2 x MACs, and its int8 input and
+    weights read once, its output written once (scale_vec and bias too)."""
+    macs = math.prod(out.shape[:-1]) * w.shape[0] * math.prod(w.shape[1:])
+    moved = (x.numel() + w.numel() + out.numel() * out.element_size()
+             + 2 * 4 * w.shape[0])
+    return 2 * macs, moved
+
+
+def _cudnn_bf16(x, w, bias, kw):
+    """The bf16 cuDNN conv of the same shape (a yardstick, not K3's
+    function): channels-last NCHW operands made once."""
+    nsp = x.ndim - 2
+    x16 = x.movedim(-1, 1).to(torch.bfloat16)
+    w16 = w.to(torch.bfloat16)
+    b16 = bias.to(torch.bfloat16) if bias is not None else None
+    conv = {1: torch.nn.functional.conv1d, 2: torch.nn.functional.conv2d,
+            3: torch.nn.functional.conv3d}[nsp]
+    return lambda: conv(x16, w16, b16, stride=kw.get("stride", 1), padding=kw.get("pad", 0),
+                        dilation=kw.get("dilation", 1), groups=kw.get("groups", 1))
+
+
+def _int_mm(x, w, kw):
+    """``torch._int_mm``, the same int32 product without the epilogue, where
+    the conv is a plain matrix product (1x1, stride 1, no pad, one group) and
+    the op takes the shape; else None."""
+    nsp = x.ndim - 2
+    if (math.prod(w.shape[2:]) != 1 or kw.get("groups", 1) != 1
+            or set(normalize_spatial_param(kw.get("pad", 0), nsp)) != {0}
+            or set(normalize_spatial_param(kw.get("stride", 1), nsp, default=1)) != {1}):
+        return None
+    a = x.reshape(-1, x.shape[-1])
+    b = w.reshape(w.shape[0], -1).t()
+    try:
+        torch._int_mm(a, b)
+    except RuntimeError:
+        return None
+    return lambda: torch._int_mm(a, b)
+
+
 def check_qconv_kernel(dev) -> dict:
     """K3 against its plain version at QCONV_SHAPES in f32, bf16 and int8 out
-    (``torch.equal``); then K3, its plain version and the bf16 cuDNN conv of
-    the same shape timed, bf16 out.  Returns its largest error and the times
-    summed over the shapes."""
+    (``torch.equal``); then K3, its plain version, the bf16 cuDNN conv of the
+    same shape and, at the 1x1 and fc shapes, ``torch._int_mm`` timed, bf16
+    out, beside K3's bound.  Returns its largest error and the times summed
+    over the shapes (``library_ms``: cuDNN's)."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
     max_err = 0.0
     times = {}
@@ -461,30 +570,157 @@ def check_qconv_kernel(dev) -> dict:
             if not equal:
                 raise AssertionError(f"K3 disagrees with its plain version: {name} {out}")
             max_err = max(max_err, err)
-        nsp = x.ndim - 2
-        x16 = x.movedim(-1, 1).to(torch.bfloat16)
-        w16 = w.to(torch.bfloat16)
-        conv = {2: torch.nn.functional.conv2d, 3: torch.nn.functional.conv3d}[nsp]
         kernel = lambda: qconv.qconv_nd(x, w, scale_vec, bias, **kw, out_dtype=torch.bfloat16)
         plain = lambda: qconv.qconv_nd_reference(x, w, scale_vec, bias, **kw,
                                                  out_dtype=torch.bfloat16)
-        cudnn = lambda: conv(x16, w16, bias.to(torch.bfloat16), **{
-            "stride": kw["stride"], "padding": kw["pad"]})
-        # plain, cuDNN, kernel, kernel, cuDNN, plain: drift hits all alike
-        p1, c1, k1, k2, c2, p2 = (_ms_per_call(f, QCONV_ITERS) for f in
-                                  (plain, cudnn, kernel, kernel, cudnn, plain))
-        t = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "cudnn_bf16_ms": (c1 + c2) / 2}
-        out_pixels = math.prod(got.shape[:-1])
-        macs = out_pixels * w.shape[0] * math.prod(w.shape[1:])
-        print(f"K3 bf16-out {name}, {QCONV_ITERS} launches per block: kernel "
-              f"{t['ms']:.4f} ms ({k1:.4f}, {k2:.4f}), plain (f64 conv) "
-              f"{t['plain_ms']:.4f} ms ({p1:.4f}, {p2:.4f}), cuDNN bf16 conv "
-              f"{t['cudnn_bf16_ms']:.4f} ms ({c1:.4f}, {c2:.4f}); "
-              f"{2 * macs / 1e9:.4g} GOP -> kernel {2 * macs / t['ms'] / 1e9:.1f} TOP/s "
-              f"of 1979 int8, cuDNN {2 * macs / t['cudnn_bf16_ms'] / 1e9:.1f} TFLOP/s")
+        cudnn = _cudnn_bf16(x, w, bias, kw)
+        int_mm = _int_mm(x, w, kw)
+        # plain, cuDNN, [_int_mm,] kernel, kernel, [_int_mm,] cuDNN, plain;
+        # the plain version on the host's clock, the others in CUDA graphs
+        fns = [plain, cudnn] + ([int_mm] if int_mm else []) + [kernel]
+        timer = lambda f: _ms_per_call(f, QCONV_ITERS) if f is plain else _graph_ms(f, QCONV_ITERS)
+        first = [timer(f) for f in fns]
+        second = [timer(f) for f in reversed(fns)][::-1]
+        avg = [(a + b) / 2 for a, b in zip(first, second)]
+        ops, moved = _k3_work(x, w, kernel())
+        bound_ms, bound_by = _bound_ms(moved, ops)
+        t = {"ms": avg[-1], "plain_ms": avg[0], "library_ms": avg[1],
+             "int_mm_ms": avg[2] if int_mm else None, "bound_ms": bound_ms,
+             "bound_by": bound_by}
+        print(f"K3 bf16-out {name}, {QCONV_ITERS} launches per timing: kernel "
+              f"{t['ms']:.4f} ms ({first[-1]:.4f}, {second[-1]:.4f}), plain (f64 conv) "
+              f"{t['plain_ms']:.4f} ms, cuDNN bf16 conv {t['library_ms']:.4f} ms, _int_mm "
+              + (f"{t['int_mm_ms']:.4f} ms" if int_mm else "n/a")
+              + f"; {ops / 1e9:.4g} GOP, {moved / 1e6:.1f} MB -> kernel "
+              f"{ops / t['ms'] / 1e9:.1f} TOP/s of 1979 int8; bound {bound_ms:.4f} ms "
+              f"({bound_by}), kernel at {bound_ms / t['ms']:.1%} of it")
         times[name] = t
-    total = {k: sum(t[k] for t in times.values()) for k in ("ms", "plain_ms", "cudnn_bf16_ms")}
-    return {"max_abs_err": max_err, **total, "by_shape": times}
+    total = {k: sum(t[k] for t in times.values())
+             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    by = {t["bound_by"] for t in times.values()}
+    return {"max_abs_err": max_err, **total,
+            "bound_by": by.pop() if len(by) == 1 else "operations", "by_shape": times}
+
+
+def _build_k3_baseline(path: str):
+    """An earlier K3 source with the previous C interface (``eco_qconv`` without
+    the plan arguments), built into the build directory and loaded."""
+    out = _build.BUILD_DIR / "libqconv_baseline.so"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(out), path],
+                   check=True, timeout=600)
+    fn = ctypes.CDLL(str(out)).eco_qconv
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 22
+                   + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _baseline_call(fn, x, w, scale_vec, b, out_dtype, out_scale, kw):
+    """One launch of the baseline kernel on a K3 call's operands."""
+    nsp = x.ndim - 2
+    geo = [normalize_spatial_param(kw.get(k, d), nsp, default=d)
+           for k, d in (("stride", 1), ("pad", 0), ("dilation", 1))]
+    n, *spatial, c_in = x.shape
+    kernel = tuple(w.shape[2:])
+    out_sp = [(i + 2 * p - dl * (k - 1) - 1) // s + 1
+              for i, k, s, p, dl in zip(spatial, kernel, *geo)]
+    kind = torch.int8 if out_scale is not None else out_dtype
+    out = torch.empty((n, *out_sp, w.shape[0]), dtype=kind, device=x.device)
+    pad3 = lambda vals, fill: [fill] * (3 - nsp) + [int(v) for v in vals]
+    err = fn(x.data_ptr(), w.movedim(1, -1).data_ptr(), scale_vec.data_ptr(),
+             b.data_ptr() if b is not None else None, out.data_ptr(), n, *pad3(spatial, 1),
+             c_in, w.shape[0], kw.get("groups", 1), *pad3(kernel, 1), *pad3(geo[0], 1),
+             *pad3(geo[1], 0), *pad3(geo[2], 1), *pad3(out_sp, 1),
+             {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}[kind],
+             float(out_scale if out_scale is not None else 1.0),
+             torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"baseline K3 launch failed: CUDA error {err}")
+    return out
+
+
+def k3_request_layers(server, request, model: str, card: str, baseline=None,
+                      cache=None, table_dir=None) -> dict:
+    """K3 at every int8 layer of one request of ``server``: the calls are
+    recorded on their real operands, then each distinct geometry is timed
+    (blocks: [baseline,] cuDNN bf16, [_int_mm,] K3, K3, [_int_mm,] cuDNN,
+    [baseline]), and the request's sums reported beside K3's bound.
+    ``cache`` shares timings between models by geometry; with ``table_dir``
+    the per-layer table is written there as JSON."""
+    calls = []
+    kernel = qconv.qconv_nd
+
+    def record(x_q, w_q, scale_vec, b=None, **kw):
+        calls.append((x_q, w_q, scale_vec, b, dict(kw)))
+        return kernel(x_q, w_q, scale_vec, b, **kw)
+
+    qconv.qconv_nd = record
+    try:
+        frames, aug = request
+        server(frames, **aug)
+        torch.cuda.synchronize()
+    finally:
+        qconv.qconv_nd = kernel
+    names = [l.name for l in server.program.exec_layers
+             if l.type.lower() in ("qconvolution", "qinnerproduct")]
+    if len(names) != len(calls):
+        raise AssertionError(f"{model}: {len(calls)} K3 calls for {len(names)} int8 layers")
+    cache = {} if cache is None else cache
+    rows = []
+    for name, (x, w, sv, b, kw) in zip(names, calls):
+        key = (tuple(x.shape), tuple(w.shape), b is not None,
+               tuple(sorted((k, str(v)) for k, v in kw.items() if k != "out_scale")),
+               kw.get("out_scale") is not None)
+        if key not in cache:
+            fn = lambda: kernel(x, w, sv, b, **kw)
+            out = fn()
+            if baseline is not None and not torch.equal(
+                    out, _baseline_call(baseline, x, w, sv, b, kw.get("out_dtype"),
+                                        kw.get("out_scale"), kw)):
+                raise AssertionError(f"{model} {name}: baseline K3 and K3 differ")
+            fns = ([lambda: _baseline_call(baseline, x, w, sv, b, kw.get("out_dtype"),
+                                           kw.get("out_scale"), kw)] if baseline else [])
+            int_mm = _int_mm(x, w, kw)
+            fns += [_cudnn_bf16(x, w, b, kw)] + ([int_mm] if int_mm else []) + [fn]
+            first = [_graph_ms(f, LAYER_ITERS) for f in fns]
+            second = [_graph_ms(f, LAYER_ITERS) for f in reversed(fns)][::-1]
+            avg = [(u + v) / 2 for u, v in zip(first, second)]
+            ops, moved = _k3_work(x, w, out)
+            bound, by = _bound_ms(moved, ops)
+            cache[key] = {
+                "ms": avg[-1], "baseline_ms": avg[0] if baseline else None,
+                "cudnn_bf16_ms": avg[1 if baseline else 0],
+                "int_mm_ms": avg[-2] if int_mm else None,
+                "bound_ms": bound, "bound_by": by, "gop": ops / 1e9,
+                "x": tuple(x.shape), "w": tuple(w.shape), "out": str(out.dtype),
+                "plan": qconv.plan_for(x, w, **{k: v for k, v in kw.items() if k in
+                                                ("stride", "pad", "dilation", "groups")}).mode,
+            }
+        rows.append({"layer": name, **cache[key]})
+    sums = {k: sum(r[k] for r in rows) for k in ("ms", "cudnn_bf16_ms", "bound_ms")}
+    if baseline is not None:
+        sums["baseline_ms"] = sum(r["baseline_ms"] for r in rows)
+    for r in rows:
+        print(f"K3 {model} {r['layer']} {r['x']} x {r['w']} -> {r['out']} ({r['plan']}): "
+              f"{r['ms']:.4f} ms, {r['gop'] / r['ms']:.1f} TOP/s, {r['bound_ms'] / r['ms']:.1%} "
+              f"of bound {r['bound_ms']:.4f} ms ({r['bound_by']}); cuDNN bf16 "
+              f"{r['cudnn_bf16_ms']:.4f} ms"
+              + (f"; _int_mm {r['int_mm_ms']:.4f} ms" if r["int_mm_ms"] is not None else "")
+              + (f"; baseline kernel {r['baseline_ms']:.4f} ms" if r["baseline_ms"] is not None
+                 else ""))
+    print(f"K3 {model} one int8 request, {len(rows)} calls, device time (CUDA graphs): K3 "
+          f"{sums['ms']:.4f} ms, bound "
+          f"{sums['bound_ms']:.4f} ms ({sums['bound_ms'] / sums['ms']:.1%}), cuDNN bf16 "
+          f"{sums['cudnn_bf16_ms']:.4f} ms"
+          + (f", baseline kernel {sums['baseline_ms']:.4f} ms "
+             f"({sums['baseline_ms'] / sums['ms']:.2f}x K3's time)" if baseline else "")
+          + f"; {LAYER_ITERS} launches a graph; {card}")
+    if table_dir:
+        os.makedirs(table_dir, exist_ok=True)
+        with open(os.path.join(table_dir, f"k3_layers_{model}.json"), "w") as f:
+            json.dump({"card": card, "sums": sums, "layers": rows}, f, indent=1)
+    return sums
 
 
 def _train_batch(seed: int, videos: int = BATCH):
@@ -571,7 +807,7 @@ def f32_step_card_vs_cpu(dev, batch):
     torch.backends.cuda.matmul.allow_tf32 = False
     graph = build_eco_lite(NUM_CLASSES, SEGMENTS, crop_size=CROP, with_loss=True, batch=2,
                            dropout_ratio=0.0)
-    params, state = Program(graph, train=True).init(
+    params, state = Program(graph, train=True, device="cpu").init(
         torch.Generator().manual_seed(SEED),
         {"data": (2, SEGMENTS, CROP, CROP, 3), "label": (2,)})
     micro = {k: v[:, :2] for k, v in batch.items()}
@@ -734,10 +970,10 @@ def _int8_layers_card_vs_cpu(dev, graph, params, state, request) -> tuple[int, f
     return n_int8, worst
 
 
-def serve_int8(dev, card: str, model: str, fc: str, float_side, reqs) -> tuple[int, int]:
+def serve_int8(dev, card: str, model: str, fc: str, float_side, reqs):
     """int8 post-training quantization of the optimized float graph, then
     bf16 serving through ``UInt8Server(int8_input=True)``; returns K1's and
-    K3's launches on that path."""
+    K3's launches on that path, and the server."""
     graph, params, state, float_logits16 = float_side
     t0 = time.perf_counter()
     qprog, qp, qs, report = quantize_for_serving(
@@ -798,10 +1034,17 @@ def serve_int8(dev, card: str, model: str, fc: str, float_side, reqs) -> tuple[i
           f"{int((logits8.argmax(-1) == float_logits16.argmax(-1)).sum())} of {BATCH}")
     if not rel <= INT8_VS_FLOAT_REL_L2_BOUND[model]:
         raise AssertionError(f"{model} int8 logits off the float server's by rel L2 {rel}")
-    return launches[0], launches[2]
+    return launches[0], launches[2], server
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--k3-baseline", metavar="QCONV_CU",
+                        help="an earlier qconv.cu (the previous C interface, without the "
+                             "plan arguments) to time in turns with K3 at every int8 layer")
+    parser.add_argument("--k3-table", metavar="DIR",
+                        help="write K3's per-layer table of each int8 request to DIR as JSON")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this check runs only on the GPU")
     os.environ.pop("ECO_PALLAS_POOL", None)
@@ -816,6 +1059,7 @@ def main() -> None:
     poolfuse.build_kernel()
     qconv.build_kernel()
     print(f"K1 + K2 + K3 build (three nvcc together) and load: {time.perf_counter() - t0:.2f} s")
+    baseline = _build_k3_baseline(args.k3_baseline) if args.k3_baseline else None
 
     checked = check_kernel(dev)
     reqs = _requests(1 + TIMED_REQUESTS)
@@ -833,12 +1077,20 @@ def main() -> None:
                                                        reqs)
     k1_full_k2, k2_full = serve_with_pool_kernel(server, reqs, card, "eco_full_kinetics", 4)
     del server
-    k1_int8_lite, k3_int8_lite = serve_int8(dev, card, "eco_lite_kinetics", "fc8",
-                                            lite + (lite_logits16,), reqs)
-    k1_int8_full, k3_int8_full = serve_int8(dev, card, "eco_full_kinetics", "fc8N",
-                                            full + (full_logits16,), reqs)
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
+    k1_int8_lite, k3_int8_lite, server = serve_int8(dev, card, "eco_lite_kinetics", "fc8",
+                                                    lite + (lite_logits16,), reqs)
+    timed = {}
+    k3_request = {"eco_lite_kinetics": k3_request_layers(server, reqs[1], "eco_lite_kinetics",
+                                                         card, baseline, timed, args.k3_table)}
+    del server
+    k1_int8_full, k3_int8_full, server = serve_int8(dev, card, "eco_full_kinetics", "fc8N",
+                                                    full + (full_logits16,), reqs)
+    k3_request["eco_full_kinetics"] = k3_request_layers(server, reqs[1], "eco_full_kinetics",
+                                                        card, baseline, timed, args.k3_table)
+    del server
+    for name in ("jax", "eco_tpu"):
+        if name in sys.modules:
+            raise AssertionError(f"the port imported {name}")
     k1_paths = {"serve": k1_serve, "train": k1_train, "test": len(test_batches),
                 "serve_k2": k1_k2serve, "serve_full": k1_full, "serve_full_k2": k1_full_k2,
                 "serve_int8_lite": k1_int8_lite, "serve_int8_full": k1_int8_full}
@@ -871,6 +1123,7 @@ def main() -> None:
             "launches": sum(k3_paths.values()),
             "launches_by_path": k3_paths,
             **qconv_checked,
+            "request_ms": k3_request,
         },
     ]
     print(json.dumps({"kernels": records}))

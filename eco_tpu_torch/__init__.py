@@ -1,9 +1,16 @@
 """ECO-TPU on PyTorch and CUDA: the port of ``eco_tpu`` to an NVIDIA H100.
 
 The JAX package ``eco_tpu`` stays the reference.  This package runs the same
-graphs (the GraphSpec IR and model builders are imported from ``eco_tpu``,
-which hold no framework code) with PyTorch ops, and replaces each Pallas
-kernel with a kernel written by hand for Hopper.
+graphs with PyTorch ops, and replaces each Pallas kernel with a kernel
+written by hand for Hopper.  It never imports ``eco_tpu``: the modules it
+needs that hold no framework code (the GraphSpec IR, prototxt import, the
+model builders, shape arithmetic) are kept here as copies, and graphs cross
+between the packages as ``graph_to_json`` text.
+
+- ``eco_tpu_torch.spec``     -- the GraphSpec IR, ``NetBuilder``, prototxt
+                                import, and the sibling-1x1 merge.
+- ``eco_tpu_torch.models``   -- the model zoo (ECO-Lite, ECO-Full, C3D ...).
+- ``eco_tpu_torch.utils``    -- Caffe's conv and pool shape arithmetic.
 
 - ``eco_tpu_torch.ops``      -- channels-last op library (conv, Caffe pools,
                                 BN math inference and train, elementwise,
@@ -11,7 +18,8 @@ kernel with a kernel written by hand for Hopper.
                                 the CUDA kernels (``csrc/``): uint8
                                 crop/normalize, the fused 3x3/s2 max pool
                                 and the int8 convolution (``ops/quant.py``).
-- ``eco_tpu_torch.runtime``  -- GraphSpec -> ``Program``, TEST or TRAIN.
+- ``eco_tpu_torch.runtime``  -- GraphSpec -> ``Program``, TEST or TRAIN, on
+                                the card unless ``device=`` says otherwise.
 - ``eco_tpu_torch.convert``  -- weight bridge to and from ``eco_tpu``'s
                                 layout, sibling-1x1 merge, BN folding and
                                 int8 post-training quantization.
@@ -23,7 +31,7 @@ kernel with a kernel written by hand for Hopper.
                                 checkpoints in the reference's files, and
                                 the ``Trainer``.
 
-The package imports ``torch`` and never ``jax``.
+The package imports ``torch`` and never ``jax`` or ``eco_tpu``.
 """
 
 __version__ = "0.1.0"

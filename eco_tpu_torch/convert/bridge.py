@@ -24,7 +24,7 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
-from eco_tpu.spec.graph import GraphSpec
+from eco_tpu_torch.spec.graph import GraphSpec
 from eco_tpu_torch.ops.qconv import kernel_layout
 
 
@@ -73,7 +73,7 @@ def _layer_types(graph: Optional[GraphSpec]):
 
 
 def params_from_jax(graph: Optional[GraphSpec], params: Mapping, state: Mapping, *,
-                    device="cpu"):
+                    device="cuda"):
     """(params, state) of ``eco_tpu`` -> the same trees of torch tensors."""
     layer_type = _layer_types(graph)
 

@@ -11,7 +11,7 @@ from typing import Mapping
 
 import torch
 
-from eco_tpu.spec.graph import GraphSpec, LayerSpec
+from eco_tpu_torch.spec.graph import GraphSpec, LayerSpec
 from eco_tpu_torch.ops.norm import DEFAULT_EPS
 
 

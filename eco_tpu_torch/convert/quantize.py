@@ -26,7 +26,7 @@ from typing import Any, Mapping, Sequence
 
 import torch
 
-from eco_tpu.spec.graph import GraphSpec
+from eco_tpu_torch.spec.graph import GraphSpec
 from eco_tpu_torch.convert.load import fold_bn
 from eco_tpu_torch.ops.qconv import kernel_layout
 from eco_tpu_torch.ops.quant import quantize_weight

@@ -1,0 +1,11 @@
+"""The model zoo: GraphSpec builders, copied from ``eco_tpu/models``.
+
+The builders hold no framework code; the port keeps its own copy so that it
+never imports ``eco_tpu``.  ``tests/test_torch_spec.py`` holds every builder's
+``graph_to_json`` equal to the reference's.
+"""
+
+from eco_tpu_torch.models.eco import build_eco_full, build_eco_lite
+from eco_tpu_torch.models.zoo import REGISTRY, get_model
+
+__all__ = ["REGISTRY", "build_eco_full", "build_eco_lite", "get_model"]

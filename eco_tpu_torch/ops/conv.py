@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from eco_tpu.utils.shapes import normalize_spatial_param
+from eco_tpu_torch.utils.shapes import normalize_spatial_param
 
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 

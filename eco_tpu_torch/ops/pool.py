@@ -3,7 +3,7 @@
 Twin of ``eco_tpu/ops/pool.py:pool_nd`` and ``global_avg_pool``.  Caffe's
 ceil-mode output dims and last-window clip become an explicit asymmetric
 ``(pad, pad_hi)`` padding computed statically by
-``eco_tpu.utils.shapes.caffe_pool_out_dim``; PyTorch's ``ceil_mode=True`` is
+``utils.shapes.caffe_pool_out_dim``; PyTorch's ``ceil_mode=True`` is
 not used, because it agrees with Caffe only on some shapes.
 
 - MAX pads with ``-inf`` (the integer minimum for integer types) and then
@@ -15,18 +15,21 @@ not used, because it agrees with Caffe only on some shapes.
   backward and raises when a gradient is asked through it.
 - AVE sums the zero-padded windows in f32 and divides by the static
   per-position divisor grid of ``caffe_avg_pool_divisors``, so padded cells
-  count in the denominator as in pooling_layer.cpp.
+  count in the denominator as in pooling_layer.cpp.  The grid is made once
+  per geometry and device and kept there: a copy from host memory at every
+  call would wait for the stream.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from eco_tpu.utils.shapes import (
+from eco_tpu_torch.utils.shapes import (
     caffe_avg_pool_divisors,
     caffe_pool_out_dim,
     normalize_spatial_param,
@@ -52,6 +55,19 @@ def _windows(x, kernel, stride):
     return x
 
 
+@functools.cache
+def ave_divisors(spatial, kernel, stride, pad, device) -> torch.Tensor:
+    """The f32 AVE divisor grid (*out, 1) of one geometry, on ``device``;
+    cached, so a pool copies it from the host only at its first call."""
+    div = np.ones((), dtype=np.float32)
+    for axis, (size, k, s, p) in enumerate(zip(spatial, kernel, stride, pad)):
+        d = np.asarray(caffe_avg_pool_divisors(size, k, s, p), dtype=np.float32)
+        shape = [1] * len(spatial)
+        shape[axis] = len(d)
+        div = div * d.reshape(shape)
+    return torch.from_numpy(div.reshape(div.shape + (1,))).to(device)
+
+
 def pool_nd(
     x: torch.Tensor,
     *,
@@ -73,11 +89,9 @@ def pool_nd(
     pad = normalize_spatial_param(pad, num_spatial, default=0)
 
     pad_cfg = []
-    divisors = []
     for size, k, s, p in zip(spatial, kernel, stride, pad):
         _, pad_hi = caffe_pool_out_dim(size, k, s, p)
         pad_cfg.append((p, pad_hi))
-        divisors.append(caffe_avg_pool_divisors(size, k, s, p))
     window_dims = tuple(range(-num_spatial, 0))
 
     mode = mode.lower()
@@ -95,12 +109,7 @@ def pool_nd(
     if mode in ("ave", "avg", "mean"):
         xp = _pad_spatial(x.float(), pad_cfg, 0.0)
         acc = _windows(xp, kernel, stride).sum(dim=window_dims)
-        div = np.ones([len(d) for d in divisors], dtype=np.float32)
-        for axis, d in enumerate(divisors):
-            shape = [1] * num_spatial
-            shape[axis] = len(d)
-            div = div * np.asarray(d, dtype=np.float32).reshape(shape)
-        div = torch.from_numpy(div.reshape(div.shape + (1,))).to(x.device)
+        div = ave_divisors(spatial, kernel, stride, pad, x.device)
         return (acc / div).to(x.dtype)
     raise ValueError(f"unknown pool mode {mode!r}")
 

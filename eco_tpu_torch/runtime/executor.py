@@ -1,8 +1,8 @@
 """GraphSpec -> ``Program`` on PyTorch, for inference and training.
 
-Twin of ``eco_tpu/runtime/executor.py:Program``.  The graph IR is the
-reference's own (``eco_tpu.spec.graph``); each layer type maps to an
-implementation over this package's ops.
+Twin of ``eco_tpu/runtime/executor.py:Program``.  The graph IR is this
+package's copy of the reference's (``eco_tpu_torch.spec.graph``); each layer
+type maps to an implementation over this package's ops.
 
 State contract, as in the reference:
     params: {layer_name: {param_name: tensor}}
@@ -32,8 +32,8 @@ from typing import Any, Mapping, Optional, Sequence
 import torch
 from torch import nn
 
-from eco_tpu.spec.graph import TEST, TRAIN, GraphSpec, LayerSpec
-from eco_tpu.utils.shapes import normalize_spatial_param
+from eco_tpu_torch.spec.graph import TEST, TRAIN, GraphSpec, LayerSpec
+from eco_tpu_torch.utils.shapes import normalize_spatial_param
 from eco_tpu_torch import ops
 from eco_tpu_torch.ops.qconv import kernel_layout
 from eco_tpu_torch.runtime.init import fill
@@ -447,10 +447,12 @@ class Program(nn.Module):
     behaviour of BN and dropout.  ``init`` builds (params, state) by
     propagating shapes on the ``meta`` device (no real compute) and filling
     each param from a ``torch.Generator``; ``apply`` runs the graph eagerly.
+    ``device`` is the card unless the caller asks for another; without a
+    card, ``init`` and ``apply`` raise.
     """
 
     def __init__(self, graph: GraphSpec, *, train: bool = False, compute_dtype=None,
-                 device="cpu"):
+                 device="cuda"):
         super().__init__()
         self.graph = graph.filtered(TRAIN if train else TEST)
         self.train = train

@@ -19,7 +19,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from eco_tpu.spec.graph import GraphSpec, LayerSpec
+from eco_tpu_torch.spec.graph import GraphSpec, LayerSpec
 
 
 def _conv_key(l: LayerSpec):

@@ -66,7 +66,7 @@ def _device_of(tree: Mapping):
     for lp in tree.values():
         for v in lp.values():
             return v.device
-    return "cpu"
+    return "cuda"
 
 
 def save_model(path: str, params, state) -> None:
@@ -77,7 +77,7 @@ def save_model(path: str, params, state) -> None:
     np.savez(path, **flat)
 
 
-def load_model(path: str, *, device="cpu"):
+def load_model(path: str, *, device="cuda"):
     """(params, state) as tensors on ``device``, in this package's layout."""
     with np.load(path, allow_pickle=False) as z:
         flat = {k: z[k] for k in z.files}

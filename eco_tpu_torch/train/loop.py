@@ -31,7 +31,7 @@ from eco_tpu_torch.train.solver import (
 
 def solver_config_from_prototxt(text: str) -> SolverConfig:
     """Parse a solver.prototxt into SolverConfig (SolverParameter subset)."""
-    from eco_tpu.spec.prototxt import parse_prototxt
+    from eco_tpu_torch.spec.prototxt import parse_prototxt
 
     d = parse_prototxt(text)
     typ = str(d.get("solver_type", "SGD")).lower()
@@ -246,11 +246,12 @@ class Trainer:
         self.log(f"Snapshotting to {mp}")
 
 
-def polyak_average(model_paths, out_path=None):
-    """Average the params of K snapshots (reference polyak_average.py)."""
+def polyak_average(model_paths, out_path=None, *, device="cuda"):
+    """Average the params of K snapshots (reference polyak_average.py) on
+    ``device``."""
     acc_p = acc_s = None
     for path in model_paths:
-        params, state = load_model(path)
+        params, state = load_model(path, device=device)
         if acc_p is None:
             acc_p, acc_s = params, state
         else:

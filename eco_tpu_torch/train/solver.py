@@ -32,7 +32,7 @@ from typing import Any, Mapping, Optional
 
 import torch
 
-from eco_tpu.spec.graph import GraphSpec, ParamSpec
+from eco_tpu_torch.spec.graph import GraphSpec, ParamSpec
 from eco_tpu_torch.train.lr_policies import learning_rate
 
 

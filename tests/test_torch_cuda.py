@@ -91,7 +91,7 @@ def test_server_on_card_matches_cpu(cuda):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     graph = get_model("eco_lite_kinetics", batch=2, num_segments=4, crop_size=64)
-    params, state = Program(graph).init(torch.Generator().manual_seed(0),
+    params, state = Program(graph, device="cpu").init(torch.Generator().manual_seed(0),
                                         {"data": graph.inputs["data"]})
     g, p, s = optimize_for_inference(graph, params, state)
     frames, h_off, w_off, mirror = (t.cpu() for t in _batch(cuda, 2, 4, 80, 96, 64))
@@ -122,7 +122,7 @@ def test_eco_full_server_on_card_matches_cpu(cuda):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     graph = get_model("eco_full_kinetics", batch=2, num_segments=4, crop_size=224)
-    params, state = Program(graph).init(torch.Generator().manual_seed(0),
+    params, state = Program(graph, device="cpu").init(torch.Generator().manual_seed(0),
                                         {"data": graph.inputs["data"]})
     g, p, s = optimize_for_inference(graph, params, state)
     frames, h_off, w_off, mirror = (t.cpu() for t in _batch(cuda, 2, 4, 240, 256, 224))
@@ -138,13 +138,14 @@ def test_int8_server_on_card_matches_cpu(cuda):
     flip an int8 value downstream; argmax equal and relative L2 within 1e-2,
     as chip_smoke.py holds the full-width model."""
     graph = get_model("eco_lite_kinetics", batch=2, num_segments=4, crop_size=64)
-    params, state = Program(graph).init(torch.Generator().manual_seed(0),
+    params, state = Program(graph, device="cpu").init(torch.Generator().manual_seed(0),
                                         {"data": graph.inputs["data"]})
     g, p, s = optimize_for_inference(graph, params, state)
     frames, h_off, w_off, mirror = (t.cpu() for t in _batch(cuda, 2, 4, 80, 96, 64))
     clips = preprocess.preprocess_on_device(frames, h_off, w_off, mirror, crop=64, mean=MEAN,
                                             out_dtype=torch.float32)
-    qprog, qp, qs, report = quantize_for_serving(Program(g), p, s, [{"data": clips}], fold=False)
+    qprog, qp, qs, report = quantize_for_serving(Program(g, device="cpu"), p, s,
+                                                 [{"data": clips}], fold=False)
     assert len(report["quantized"]) == 29
     before = qconv.qconv_launches
     cpu, card = _card_and_cpu_logits(cuda, qprog.graph, qp, qs, 64, "fc8", frames,
@@ -223,7 +224,7 @@ def test_train_step_on_card_matches_cpu(cuda):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     graph = build_eco_lite(400, 4, crop_size=64, with_loss=True, batch=2, dropout_ratio=0.0)
-    params, state = Program(graph, train=True).init(
+    params, state = Program(graph, train=True, device="cpu").init(
         torch.Generator().manual_seed(0), {"data": graph.inputs["data"], "label": (2,)})
     frames, h_off, w_off, mirror = (t.cpu() for t in _batch(cuda, 2, 4, 80, 96, 64))
     batch = {"data": frames[None], "h_off": h_off[None], "w_off": w_off[None],
@@ -258,8 +259,9 @@ def _qconv_operands(dev, shape, c_out, kernel, groups, seed=0):
 @pytest.mark.parametrize("stride,pad,dilation", [(1, 0, 1), (2, 1, 1), (1, 2, 2)])
 @pytest.mark.parametrize("out", ["f32", "bf16", "int8"])
 def test_qconv_equals_plain_version(cuda, nsp, c_in, groups, stride, pad, dilation, out):
-    """C_in/g of 3 and 8 take the kernel's scalar path, 32 its 16-byte path;
-    C_out 70 and the output pixels leave ragged tiles."""
+    """C_in/g of 32 takes the kernel's cp.async ring (VEC), 3 its tap-row
+    path (SPAN; GATHER with dilation), 8 its byte gather (GATHER); C_out 70
+    and the output pixels leave ragged tiles."""
     x, w, scale_vec, bias = _qconv_operands(cuda, (2,) + (9,) * nsp + (c_in,), 72 if groups == 3
                                             else 70, (3,) * nsp, groups)
     kw = dict(stride=stride, pad=pad, dilation=dilation, groups=groups)
@@ -275,8 +277,107 @@ def test_qconv_equals_plain_version(cuda, nsp, c_in, groups, stride, pad, dilati
     assert torch.equal(got, qconv.qconv_nd_reference(x, w, scale_vec, bias, **kw))
 
 
+def _qconv_held(x, w, scale_vec, bias, **kw):
+    for okw in (dict(out_dtype=torch.float32), dict(out_dtype=torch.bfloat16),
+                dict(out_scale=qconv.qconv_nd_reference(x, w, scale_vec, bias, **kw)
+                     .abs().max().item() / 200)):
+        got = qconv.qconv_nd(x, w, scale_vec, bias, **kw, **okw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, qconv.qconv_nd_reference(x, w, scale_vec, bias, **kw, **okw)), okw
+
+
+@pytest.mark.parametrize("shape,c_out,kernel,pad", [
+    ((2, 4, 7, 7, 256), 256, (3, 3, 3), 1),   # res5-like: 4 M tiles x 2 N tiles
+    ((8, 1, 1, 512), 400, (1, 1), 0),         # the fc: one M tile
+    ((3, 5, 5, 96), 70, (3, 3), 1),           # BK 32, ragged N: 9 splits of 3 chunks
+])
+def test_qconv_split_k_equals_plain_version(cuda, shape, c_out, kernel, pad):
+    x, w, scale_vec, bias = _qconv_operands(cuda, shape, c_out, kernel, 1)
+    p = qconv.plan_for(x, w, pad=pad)
+    assert p.mode == "vec" and p.splits > 1, p
+    _qconv_held(x, w, scale_vec, bias, pad=pad)
+
+
+@pytest.mark.parametrize("shape,stride,pad,offset", [
+    ((2, 30, 31, 3), 2, 3, 0),    # conv1's 7x7/s2: taps past every image edge
+    ((1, 9, 8, 3), 1, 3, 4),      # a 4-byte offset view: aligned words, not 16 bytes
+    ((2, 12, 13, 4), 2, 0, 0),    # C_in 4: 28 bytes a tap row, no padding taps
+])
+def test_qconv_span_path_masks_the_image_edges(cuda, shape, stride, pad, offset):
+    x, w, scale_vec, bias = _qconv_operands(cuda, shape, 64, (7, 7), 1)
+    if offset:
+        base = torch.zeros(offset + x.numel(), dtype=torch.int8, device=cuda)
+        base[offset:] = x.flatten()
+        x = base[offset:].view(x.shape)
+    assert qconv.plan_for(x, w, stride=stride, pad=pad).mode == "span"
+    _qconv_held(x, w, scale_vec, bias, stride=stride, pad=pad)
+
+
+# Every distinct int8 layer of ECO-Lite and ECO-Full Kinetics at batch 8, 16
+# segments, crop 224 (the optimized graphs): input, C_out, kernel, stride, pad
+ECO_INT8_LAYERS = {
+    "conv1_7x7_s2": ((128, 224, 224, 3), 64, (7, 7), 2, 3),
+    "conv2_3x3_reduce": ((128, 56, 56, 64), 64, (1, 1), 1, 0),
+    "conv2_3x3": ((128, 56, 56, 64), 192, (3, 3), 1, 1),
+    "inception_3a_1x1__merged": ((128, 28, 28, 192), 192, (1, 1), 1, 0),
+    "inception_3a_3x3": ((128, 28, 28, 64), 64, (3, 3), 1, 1),
+    "inception_3a_double_3x3_1": ((128, 28, 28, 64), 96, (3, 3), 1, 1),
+    "inception_3a_double_3x3_2": ((128, 28, 28, 96), 96, (3, 3), 1, 1),
+    "inception_3a_pool_proj": ((128, 28, 28, 192), 32, (1, 1), 1, 0),
+    "inception_3b_1x1__merged": ((128, 28, 28, 256), 192, (1, 1), 1, 0),
+    "inception_3b_pool_proj": ((128, 28, 28, 256), 64, (1, 1), 1, 0),
+    "inception_3c_double_3x3_reduce": ((128, 28, 28, 320), 64, (1, 1), 1, 0),
+    "inception_3c_double_3x3_reduce__merged": ((128, 28, 28, 320), 192, (1, 1), 1, 0),
+    "res3a_2n": ((8, 16, 28, 28, 96), 128, (3, 3, 3), 1, 1),
+    "res3b_1": ((8, 16, 28, 28, 128), 128, (3, 3, 3), 1, 1),
+    "res4a_1": ((8, 16, 28, 28, 128), 256, (3, 3, 3), 2, 1),
+    "res4a_2": ((8, 8, 14, 14, 256), 256, (3, 3, 3), 1, 1),
+    "res5a_1": ((8, 8, 14, 14, 256), 512, (3, 3, 3), 2, 1),
+    "res5a_2": ((8, 4, 7, 7, 512), 512, (3, 3, 3), 1, 1),
+    "fc8": ((8, 1, 1, 512), 400, (1, 1), 1, 0),
+    "inception_3c_3x3": ((128, 28, 28, 128), 160, (3, 3), 2, 1),
+    "inception_3c_double_3x3_2": ((128, 28, 28, 96), 96, (3, 3), 2, 1),
+    "inception_4a_1x1__merged": ((128, 14, 14, 576), 384, (1, 1), 1, 0),
+    "inception_4a_3x3": ((128, 14, 14, 64), 96, (3, 3), 1, 1),
+    "inception_4a_double_3x3_1": ((128, 14, 14, 96), 128, (3, 3), 1, 1),
+    "inception_4a_double_3x3_2": ((128, 14, 14, 128), 128, (3, 3), 1, 1),
+    "inception_4a_pool_proj": ((128, 14, 14, 576), 128, (1, 1), 1, 0),
+    "inception_4c_1x1__merged": ((128, 14, 14, 576), 416, (1, 1), 1, 0),
+    "inception_4c_3x3": ((128, 14, 14, 128), 160, (3, 3), 1, 1),
+    "inception_4c_double_3x3_2": ((128, 14, 14, 160), 160, (3, 3), 1, 1),
+    "inception_4d_1x1__merged": ((128, 14, 14, 608), 384, (1, 1), 1, 0),
+    "inception_4d_3x3": ((128, 14, 14, 128), 192, (3, 3), 1, 1),
+    "inception_4d_double_3x3_1": ((128, 14, 14, 160), 192, (3, 3), 1, 1),
+    "inception_4d_double_3x3_2": ((128, 14, 14, 192), 192, (3, 3), 1, 1),
+    "inception_4d_pool_proj": ((128, 14, 14, 608), 128, (1, 1), 1, 0),
+    "inception_4e_3x3_reduce__merged": ((128, 14, 14, 608), 320, (1, 1), 1, 0),
+    "inception_4e_3x3": ((128, 14, 14, 128), 192, (3, 3), 2, 1),
+    "inception_4e_double_3x3_1": ((128, 14, 14, 192), 256, (3, 3), 1, 1),
+    "inception_4e_double_3x3_2": ((128, 14, 14, 256), 256, (3, 3), 2, 1),
+    "inception_5a_1x1__merged": ((128, 7, 7, 1056), 704, (1, 1), 1, 0),
+    "inception_5a_3x3": ((128, 7, 7, 192), 320, (3, 3), 1, 1),
+    "inception_5a_double_3x3_1": ((128, 7, 7, 160), 224, (3, 3), 1, 1),
+    "inception_5a_double_3x3_2": ((128, 7, 7, 224), 224, (3, 3), 1, 1),
+    "inception_5a_pool_proj": ((128, 7, 7, 1056), 128, (1, 1), 1, 0),
+    "inception_5b_1x1__merged": ((128, 7, 7, 1024), 736, (1, 1), 1, 0),
+    "inception_5b_3x3": ((128, 7, 7, 192), 320, (3, 3), 1, 1),
+    "inception_5b_double_3x3_1": ((128, 7, 7, 192), 224, (3, 3), 1, 1),
+    "inception_5b_pool_proj": ((128, 7, 7, 1024), 128, (1, 1), 1, 0),
+    "fc8N": ((8, 1, 1, 1536), 400, (1, 1), 1, 0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ECO_INT8_LAYERS))
+def test_qconv_at_every_eco_int8_layer_equals_plain_version(cuda, name):
+    shape, c_out, kernel, stride, pad = ECO_INT8_LAYERS[name]
+    x, w, scale_vec, bias = _qconv_operands(cuda, shape, c_out, kernel, 1)
+    assert qconv.plan_for(x, w, stride=stride, pad=pad).mode == (
+        "span" if shape[-1] == 3 else "vec")
+    _qconv_held(x, w, scale_vec, bias, stride=stride, pad=pad)
+
+
 def test_qconv_without_bias_and_on_an_unaligned_input(cuda):
-    """A 1-byte offset view: no 16-byte vectors, the kernel's scalar path."""
+    """A 1-byte offset view: no 16-byte copies, the kernel's byte gather."""
     x, w, scale_vec, _ = _qconv_operands(cuda, (2, 6, 7, 32), 16, (3, 3), 1)
     base = torch.zeros(1 + x.numel(), dtype=torch.int8, device=cuda)
     base[1:] = x.flatten()

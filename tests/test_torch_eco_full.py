@@ -35,7 +35,7 @@ def full():
     seeded init, BN perturbed from a numpy seed), a numpy input, and the
     reference's logits."""
     g = build_eco_full(7, S, crop_size=CROP, batch=1)
-    tp, ts = Program(g).init(torch.Generator().manual_seed(0), {"data": g.inputs["data"]})
+    tp, ts = Program(g, device="cpu").init(torch.Generator().manual_seed(0), {"data": g.inputs["data"]})
     params, state = _randomize(*params_to_jax(g, tp, ts), seed=0)
     x = (np.random.default_rng(1).standard_normal(g.inputs["data"]) * 50).astype(np.float32)
     want = JaxProgram(g, train=False).apply(params, state, {"data": jnp.asarray(x)},
@@ -46,12 +46,12 @@ def full():
 @pytest.mark.parametrize("optimized", [False, True])
 def test_eco_full_matches_jax(full, optimized):
     g, params, state, x, want = full
-    tp, ts = params_from_jax(g, params, state)
+    tp, ts = params_from_jax(g, params, state, device="cpu")
     if optimized:
         g_opt, tp, ts = optimize_for_inference(g, tp, ts)
         assert _layers(g_opt) == _layers(jax_optimize(g, params, state)[0])
         g = g_opt
-    prog = Program(g)
+    prog = Program(g, device="cpu")
     if optimized:
         assert len(prog.exec_layers) == 179
     with torch.no_grad():
@@ -72,8 +72,8 @@ def test_eco_full_graph_shape():
     assert g.layer("gn02_concat").bottoms[0] == g.layer("segment_consensus_st2").tops[0]
     pool = g.layer("global_pool2D")
     assert (pool.opt("pool"), pool.opt("kernel_size")) == ("ave", 7)
-    out, _ = Program(g).apply(
-        *Program(g).init(torch.Generator().manual_seed(0), {"data": g.inputs["data"]}),
+    out, _ = Program(g, device="cpu").apply(
+        *Program(g, device="cpu").init(torch.Generator().manual_seed(0), {"data": g.inputs["data"]}),
         {"data": torch.zeros(g.inputs["data"])}, capture=["global_pool2D", "pool_fusion_st2D"])
     assert tuple(out["global_pool2D"].shape) == (S, 1, 1, 1024)
     assert tuple(out["pool_fusion_st2D"].shape) == (1, 1024)
@@ -97,7 +97,7 @@ def test_segment_consensus_matches_jax_with_gradient(shape):
     want_dx = np.asarray(jax.grad(loss)(jnp.asarray(x)))
     tx = torch.from_numpy(x).requires_grad_()
     with torch.enable_grad():
-        y = Program(g).apply({}, {}, {"x": tx})[0]["y"]
+        y = Program(g, device="cpu").apply({}, {}, {"x": tx})[0]["y"]
         (dx,) = torch.autograd.grad((y * torch.from_numpy(cot)).sum(), tx)
     np.testing.assert_allclose(y.detach().numpy(), want_y, rtol=1e-6, atol=1e-7)
     np.testing.assert_allclose(dx.numpy(), want_dx, rtol=1e-6, atol=1e-8)

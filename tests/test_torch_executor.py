@@ -141,7 +141,7 @@ def test_mini_graph_holds_every_slice_type(mini):
 @pytest.mark.parametrize("optimized", [False, True])
 def test_mini_graph_matches_jax(mini, optimized):
     g, params, state = mini
-    tp, ts = params_from_jax(g, params, state)
+    tp, ts = params_from_jax(g, params, state, device="cpu")
     if optimized:
         g, params, state = jax_optimize(g, params, state)
         g_t, tp, ts = optimize_for_inference(mini[0], tp, ts)
@@ -149,7 +149,7 @@ def test_mini_graph_matches_jax(mini, optimized):
     x = _data()
     want, _ = JaxProgram(g, train=False).apply(params, state, {"data": jnp.asarray(x)},
                                                capture=["fc"])
-    got, _ = Program(g).apply(tp, ts, {"data": torch.from_numpy(x)}, capture=["fc"])
+    got, _ = Program(g, device="cpu").apply(tp, ts, {"data": torch.from_numpy(x)}, capture=["fc"])
     for name in ("fc", "probs"):
         np.testing.assert_allclose(got[name].numpy(), np.asarray(want[name]),
                                    rtol=1e-5, atol=2e-6)
@@ -159,7 +159,7 @@ def test_mini_graph_matches_jax(mini, optimized):
 def test_rewrites_match_jax(mini, rewrite):
     """Same layer list, and params equal through the bridge."""
     g, params, state = mini
-    tp, ts = params_from_jax(g, params, state)
+    tp, ts = params_from_jax(g, params, state, device="cpu")
     if rewrite == "merge":
         jg, jp, js = jax_merge(g, params, state)
         tg, tp, ts = merge_sibling_1x1_convs(g, tp, ts)
@@ -170,15 +170,15 @@ def test_rewrites_match_jax(mini, rewrite):
         jg, jp, js = jax_optimize(g, params, state)
         tg, tp, ts = optimize_for_inference(g, tp, ts)
     assert _layers(tg) == _layers(jg) and tg.name == jg.name
-    want_p, want_s = params_from_jax(jg, jp, js)
+    want_p, want_s = params_from_jax(jg, jp, js, device="cpu")
     _assert_trees_close(tp, want_p)
     _assert_trees_close(ts, want_s)
 
 
 def test_init_shapes_match_jax_through_the_bridge(mini):
     g, params, state = mini
-    want_p, want_s = params_from_jax(g, params, state)
-    tp, ts = Program(g).init(torch.Generator().manual_seed(0), {"data": g.inputs["data"]})
+    want_p, want_s = params_from_jax(g, params, state, device="cpu")
+    tp, ts = Program(g, device="cpu").init(torch.Generator().manual_seed(0), {"data": g.inputs["data"]})
     for got, want in ((tp, want_p), (ts, want_s)):
         assert got.keys() == want.keys()
         for lname in want:
@@ -190,9 +190,9 @@ def test_init_shapes_match_jax_through_the_bridge(mini):
 
 def test_init_is_seeded_and_on_the_programs_device():
     g = _mini_graph()
-    a = Program(g).init(torch.Generator().manual_seed(3), {"data": g.inputs["data"]})[0]
-    b = Program(g).init(torch.Generator().manual_seed(3), {"data": g.inputs["data"]})[0]
-    c = Program(g).init(torch.Generator().manual_seed(4), {"data": g.inputs["data"]})[0]
+    a = Program(g, device="cpu").init(torch.Generator().manual_seed(3), {"data": g.inputs["data"]})[0]
+    b = Program(g, device="cpu").init(torch.Generator().manual_seed(3), {"data": g.inputs["data"]})[0]
+    c = Program(g, device="cpu").init(torch.Generator().manual_seed(4), {"data": g.inputs["data"]})[0]
     torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert not torch.equal(a["stem"]["w"], c["stem"]["w"])
     assert a["stem"]["w"].device.type == "cpu"
@@ -230,7 +230,7 @@ def test_fillers(filler, check):
 
 def test_bridge_layouts(mini):
     g, params, state = mini
-    tp, ts = params_from_jax(g, params, state)
+    tp, ts = params_from_jax(g, params, state, device="cpu")
     np.testing.assert_array_equal(tp["stem"]["w"].numpy(),
                                   np.asarray(params["stem"]["w"]).transpose(3, 2, 0, 1))
     np.testing.assert_array_equal(tp["res_a"]["w"].numpy(),
@@ -242,14 +242,14 @@ def test_bridge_layouts(mini):
 
 def test_program_checks_inputs_and_layer_types():
     g = _mini_graph()
-    prog = Program(g, compute_dtype=torch.bfloat16)
+    prog = Program(g, compute_dtype=torch.bfloat16, device="cpu")
     assert isinstance(prog, torch.nn.Module)
     assert prog.output_names == JaxProgram(g, train=False).output_names == ["probs"]
     # the reference's cast policy: float features to compute_dtype, labels kept
     assert prog.cast_input(torch.zeros(2, 3, 4)).dtype == torch.bfloat16
     assert prog.cast_input(torch.zeros(2, dtype=torch.int64)).dtype == torch.int64
     assert prog.cast_input(torch.zeros(2, 3)).dtype == torch.float32
-    params, state = Program(g).init(torch.Generator().manual_seed(0), {"data": g.inputs["data"]})
+    params, state = Program(g, device="cpu").init(torch.Generator().manual_seed(0), {"data": g.inputs["data"]})
     with pytest.raises(ValueError, match="non-batch dims"):
         prog.apply(params, state, {"data": torch.zeros(N, S + 1, HW, HW, 3)})
     with pytest.raises(ValueError, match="missing"):
@@ -258,7 +258,7 @@ def test_program_checks_inputs_and_layer_types():
         bad = GraphSpec("bad", {"data": (1, 4, 4, 3)},
                         [LayerSpec("l", ltype, ("data",), ("l",), {"num_output": 2})])
         with pytest.raises(KeyError, match=ltype):
-            Program(bad)
+            Program(bad, device="cpu")
 
 
 def _frames_and_augment(h, w, crop, seed=2):
@@ -279,8 +279,8 @@ def _serve_both(g, params, state, frames, h_off, w_off, mirror, *, crop, compute
     aug = (jnp.asarray(h_off), jnp.asarray(w_off), jnp.asarray(mirror))
     want = JaxUInt8Server(jprog, jp, js, crop=crop, interpret=True)(
         jnp.asarray(frames), h_off=aug[0], w_off=aug[1], mirror=aug[2])
-    tg, tp, ts = optimize_for_inference(g, *params_from_jax(g, params, state))
-    tprog = Program(tg, compute_dtype=None if compute_dtype is None else torch.float32)
+    tg, tp, ts = optimize_for_inference(g, *params_from_jax(g, params, state, device="cpu"))
+    tprog = Program(tg, compute_dtype=None if compute_dtype is None else torch.float32, device="cpu")
     taug = dict(h_off=torch.from_numpy(h_off), w_off=torch.from_numpy(w_off),
                 mirror=torch.from_numpy(mirror))
     got = UInt8Server(tprog, tp, ts, crop=crop)(torch.from_numpy(frames), **taug)

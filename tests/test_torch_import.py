@@ -1,8 +1,10 @@
-"""eco_tpu_torch never imports JAX: the machine with the GPU has none.
+"""eco_tpu_torch never imports JAX, nor the JAX package ``eco_tpu``: the
+machine with the GPU has no JAX, and the port keeps its own copies of what it
+needs.
 
-Each case imports in a fresh interpreter where ``import jax`` fails
-(``sys.modules["jax"] = None``), so an import of JAX anywhere below the
-imported modules raises.
+Each case imports in a fresh interpreter where ``import jax`` and ``import
+eco_tpu`` fail (``sys.modules[name] = None``), so an import of either
+anywhere below the imported modules raises.
 """
 
 import subprocess
@@ -21,7 +23,9 @@ for name in names:
     importlib.import_module(name)
 assert len(names) >= 23, names
 assert {"eco_tpu_torch.ops.quant", "eco_tpu_torch.ops.qconv",
-        "eco_tpu_torch.convert.quantize"} <= set(names), names
+        "eco_tpu_torch.convert.quantize", "eco_tpu_torch.spec.graph",
+        "eco_tpu_torch.spec.prototxt", "eco_tpu_torch.models.zoo",
+        "eco_tpu_torch.utils.shapes"} <= set(names), names
 """
 
 _IMPORT_CHIP_SMOKE = """
@@ -33,8 +37,10 @@ assert callable(chip_smoke.main)
 @pytest.mark.parametrize("code", [_IMPORT_ALL, _IMPORT_CHIP_SMOKE],
                          ids=["package_and_submodules", "chip_smoke"])
 def test_imports_without_jax(code):
-    prelude = "import sys\nsys.modules['jax'] = None\n"
-    check = "\nassert sys.modules.get('jax') is None\nprint('ok')\n"
+    prelude = "import sys\nsys.modules['jax'] = None\nsys.modules['eco_tpu'] = None\n"
+    check = ("\nassert sys.modules.get('jax') is None and sys.modules.get('eco_tpu') is None"
+             "\nassert not [m for m in sys.modules if m.startswith(('jax.', 'eco_tpu.'))]"
+             "\nprint('ok')\n")
     proc = subprocess.run(
         [sys.executable, "-c", prelude + code + check],
         cwd=REPO, capture_output=True, text=True, timeout=300,

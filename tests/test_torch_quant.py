@@ -173,7 +173,7 @@ def _jax_and_port(graph, data, seed=0, perturb=True):
     p, s = jprog.init(jax.random.PRNGKey(seed), {next(iter(graph.inputs)): jnp.asarray(data)})
     if perturb:
         p, s = _randomize(p, s, seed)
-    return jprog, p, s, Program(graph), *params_from_jax(graph, p, s)
+    return jprog, p, s, Program(graph, device="cpu"), *params_from_jax(graph, p, s, device="cpu")
 
 
 def _layer_opts(graph):
@@ -213,7 +213,7 @@ def test_quantize_for_serving_matches_jax(which):
     for k, v in jrep["act_scales"].items():
         assert trep["act_scales"][k] == pytest.approx(v, rel=SCALE_RTOL), k
     _assert_same_qgraph(tq_prog.graph, jq_prog.graph)
-    want_p, _ = params_from_jax(jq_prog.graph, jqp, jqs)
+    want_p, _ = params_from_jax(jq_prog.graph, jqp, jqs, device="cpu")
     for lname in trep["quantized"]:
         assert tqp[lname]["w"].dtype == torch.int8
         assert (tqp[lname]["w"].int() - want_p[lname]["w"].int()).abs().max() <= 1
@@ -233,9 +233,9 @@ def test_quantized_programs_agree_on_the_same_qgraph_and_weights():
     data = (np.random.default_rng(6).standard_normal(g.inputs["data"]) * 3).astype(np.float32)
     jprog, p, s, *_ = _jax_and_port(g, data)
     jq_prog, jqp, jqs, _ = jax_quantize_for_serving(jprog, p, s, [{"data": jnp.asarray(data)}])
-    tqp, tqs = params_from_jax(jq_prog.graph, jqp, jqs)
+    tqp, tqs = params_from_jax(jq_prog.graph, jqp, jqs, device="cpu")
     want, _ = jq_prog.apply(jqp, jqs, {"data": jnp.asarray(data)}, capture=["fc"])
-    got, _ = Program(jq_prog.graph).apply(tqp, tqs, {"data": torch.from_numpy(data)},
+    got, _ = Program(jq_prog.graph, device="cpu").apply(tqp, tqs, {"data": torch.from_numpy(data)},
                                           capture=["fc"])
     for name in ("fc", "probs"):
         np.testing.assert_allclose(got[name].numpy(), np.asarray(want[name]),
@@ -250,14 +250,14 @@ def test_q_program_init_and_bridge_round_trip():
     data = np.random.default_rng(8).standard_normal(g.inputs["data"]).astype(np.float32)
     jprog, p, s, *_ = _jax_and_port(g, data, perturb=False)
     jq_prog, jqp, jqs, _ = jax_quantize_for_serving(jprog, p, s, [{"data": jnp.asarray(data)}])
-    tqp, tqs = params_from_jax(jq_prog.graph, jqp, jqs)
+    tqp, tqs = params_from_jax(jq_prog.graph, jqp, jqs, device="cpu")
     assert tqp["conv1"]["w"].movedim(1, -1).is_contiguous()
     back_p, back_s = params_to_jax(jq_prog.graph, tqp, tqs)
     for lname, lp in jqp.items():
         for pname, v in lp.items():
             assert back_p[lname][pname].dtype == np.asarray(v).dtype
             np.testing.assert_array_equal(back_p[lname][pname], np.asarray(v))
-    init_p, _ = Program(jq_prog.graph).init(torch.Generator().manual_seed(0),
+    init_p, _ = Program(jq_prog.graph, device="cpu").init(torch.Generator().manual_seed(0),
                                             {"data": g.inputs["data"]})
     for lname in ("conv1", "c3d", "fc"):
         assert init_p[lname]["w"].dtype == torch.int8 and not init_p[lname]["w"].any()
@@ -270,7 +270,7 @@ def test_q_program_init_and_bridge_round_trip():
 
 def test_calibrate_takes_max_over_batches():
     g = _small_video_graph(with_loss=False)
-    prog = Program(g)
+    prog = Program(g, device="cpu")
     params, state = prog.init(torch.Generator().manual_seed(0), {"data": g.inputs["data"]})
     small = {"data": torch.full(g.inputs["data"], 0.5)}
     big = {"data": torch.full(g.inputs["data"], 2.0)}
@@ -289,19 +289,19 @@ def test_quantize_graph_skips_degenerate_and_transposed():
 
 def test_quantized_layers_refuse_train_mode():
     g = _small_video_graph(with_loss=False)
-    prog = Program(g)
+    prog = Program(g, device="cpu")
     params, state = prog.init(torch.Generator().manual_seed(0), {"data": g.inputs["data"]})
     data = torch.ones(g.inputs["data"])
     qprog, qp, qs, _ = quantize_for_serving(prog, params, state, [{"data": data}])
     for ltype in ("qconvolution", "qinnerproduct"):
         assert any(l.type == ltype for l in qprog.graph.layers)
     with pytest.raises(ValueError, match="serving-only"):
-        Program(qprog.graph, train=True).apply(qp, qs, {"data": data})
+        Program(qprog.graph, train=True, device="cpu").apply(qp, qs, {"data": data})
     fc_only = GraphSpec("fc_only", {"a": (2, 16)}, [
         LayerSpec("fc", "qinnerproduct", ("a",), ("y",), {"num_output": 4, "act_scale": 0.1})])
-    fp, fs = Program(fc_only).init(torch.Generator(), {"a": (2, 16)})
+    fp, fs = Program(fc_only, device="cpu").init(torch.Generator(), {"a": (2, 16)})
     with pytest.raises(ValueError, match="serving-only"):
-        Program(fc_only, train=True).apply(fp, fs, {"a": torch.ones(2, 16)})
+        Program(fc_only, train=True, device="cpu").apply(fp, fs, {"a": torch.ones(2, 16)})
 
 
 # -- int8 chains and the int8 input plane -----------------------------------
@@ -366,14 +366,14 @@ def test_chain_int8_intermediate_tensors_are_int8():
     mini graph, and the segment unfold before the 3D convs."""
     g = _chain_graph()
     data = {"a": torch.from_numpy(_chain_data(4)["a"])}
-    prog = Program(g)
+    prog = Program(g, device="cpu")
     p, s = prog.init(torch.Generator().manual_seed(0), {"a": g.inputs["a"]})
     q2, p2, s2, _ = quantize_for_serving(prog, p, s, [data], fold=False, chain=True)
     assert q2.apply(p2, s2, data, capture=["t2"])[0]["t2"].dtype == torch.int8
 
     mg = _mini_graph()
     mdata = {"data": torch.randn(mg.inputs["data"], generator=torch.Generator().manual_seed(1))}
-    prog = Program(mg)
+    prog = Program(mg, device="cpu")
     p, s = prog.init(torch.Generator().manual_seed(0), {"data": mg.inputs["data"]})
     mq, mp, ms, _ = quantize_for_serving(prog, p, s, [mdata])
     outs, _ = mq.apply(mp, ms, mdata, capture=["pool1", "r2Dto3D", "res_a"])
@@ -389,7 +389,7 @@ def test_chain_int8_respects_float_consumer_boundary():
     ])
     data = {"a": torch.from_numpy(np.random.default_rng(5).standard_normal((2, 16))
                                   .astype(np.float32))}
-    prog = Program(g)
+    prog = Program(g, device="cpu")
     p, s = prog.init(torch.Generator().manual_seed(0), {"a": (2, 16)})
     q, qp, qs, r = quantize_for_serving(prog, p, s, [data], fold=False, chain=True)
     assert r["chained"] == ["fc1"]
@@ -494,7 +494,7 @@ def test_uint8_server_int8_input_plane_exact():
     assert q.dtype == torch.int8
     assert torch.equal(q, quantize_act(f32, s_on.in_scale))
     # the float graph: no quantized consumer of the input, the plane is off
-    assert UInt8Server(Program(g), tp, ts, crop=crop).in_scale is None
+    assert UInt8Server(Program(g, device="cpu"), tp, ts, crop=crop).in_scale is None
 
 
 def test_int8_uint8_server_matches_jax():
@@ -507,8 +507,8 @@ def test_int8_uint8_server_matches_jax():
     jq_prog, jqp, jqs, _ = jax_quantize_for_serving(jprog, p, s, [{"data": jnp.asarray(calib)}])
     jserver = JaxUInt8Server(jq_prog, jqp, jqs, crop=crop, interpret=True)
     want = np.asarray(jserver(jnp.asarray(frames)))
-    tqp, tqs = params_from_jax(jq_prog.graph, jqp, jqs)
-    tserver = UInt8Server(Program(jq_prog.graph), tqp, tqs, crop=crop)
+    tqp, tqs = params_from_jax(jq_prog.graph, jqp, jqs, device="cpu")
+    tserver = UInt8Server(Program(jq_prog.graph, device="cpu"), tqp, tqs, crop=crop)
     assert tserver.in_scale == jserver._in_scale
     got = tserver(torch.from_numpy(frames)).numpy()
     assert (got.argmax(-1) == want.argmax(-1)).all()

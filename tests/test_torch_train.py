@@ -310,7 +310,7 @@ def _shared_weights(graph, seed=0):
     graph: the reference's init traces every layer), and the same trees
     through the bridge."""
     params, state = _reference_weights(graph.name, seed)
-    return (params, state), params_from_jax(graph, params, state)
+    return (params, state), params_from_jax(graph, params, state, device="cpu")
 
 
 def _batch(graph, iter_size, seed=1):
@@ -331,7 +331,7 @@ def _run_both(graph, cfg_kw, steps, seed=0):
     (jp, js), (tp, ts_) = _shared_weights(graph, seed)
     jcfg, tcfg = JaxSolverConfig(**cfg_kw), SolverConfig(**cfg_kw)
     jstep = jax.jit(jax_make_train_step(JaxProgram(graph, train=True), jcfg))
-    tstep = make_train_step(Program(graph, train=True), tcfg)
+    tstep = make_train_step(Program(graph, train=True, device="cpu"), tcfg)
     jts, tts = jax_init_train_state(jp, js), init_train_state(tp, ts_)
     jm, tm = [], []
     for i in range(steps):
@@ -375,7 +375,7 @@ def test_one_step_matches_jax(solver_type):
 def test_train_step_computes_its_gradients_whatever_the_grad_mode():
     g = _small_graph()
     _, (tp, ts_) = _shared_weights(g)
-    step = make_train_step(Program(g, train=True), SolverConfig(base_lr=0.1, iter_size=2))
+    step = make_train_step(Program(g, train=True, device="cpu"), SolverConfig(base_lr=0.1, iter_size=2))
     batch = {k: torch.from_numpy(v) for k, v in _batch(g, 2).items()}
     want, _ = step(init_train_state(tp, ts_), batch)
     with torch.no_grad():
@@ -398,7 +398,7 @@ def test_mini_graph_gradients_match_jax():
         return jprog.total_loss(outs), new_state
 
     (jl, jstate), jgrads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(jp)
-    prog = Program(g, train=True)
+    prog = Program(g, train=True, device="cpu")
     leaves = {ln: {k: v.clone().requires_grad_() for k, v in lp.items()} for ln, lp in tp.items()}
     outs, tstate = prog.apply(leaves, ts_, {k: torch.from_numpy(v) for k, v in batch.items()})
     assert prog.loss_names == ["loss"] and "top1" not in outs
@@ -428,7 +428,7 @@ def test_three_nesterov_steps_land_on_the_jax_params():
 def test_train_step_draws_dropout_per_layer_and_step():
     g = _mini_train_graph(dropout=0.5)
     _, (tp, ts_) = _shared_weights(g)
-    prog = Program(g, train=True)
+    prog = Program(g, train=True, device="cpu")
     batch = {k: torch.from_numpy(v[0]) for k, v in _batch(g, 1).items()}
     loss = lambda seed: prog.apply(tp, ts_, batch, generator=torch.Generator().manual_seed(seed))[0]["loss"]
     assert loss(0).item() == loss(0).item()
@@ -436,18 +436,18 @@ def test_train_step_draws_dropout_per_layer_and_step():
     with pytest.raises(ValueError, match="generator"):
         prog.apply(tp, ts_, batch)
     # TEST phase: dropout is the identity, the accuracy top is there
-    outs, state = Program(g).apply(tp, ts_, batch)
+    outs, state = Program(g, device="cpu").apply(tp, ts_, batch)
     assert set(outs) == {"loss", "top1"} and state == ts_
 
 
 def test_step_rejects_what_is_not_ported():
     g = _mini_train_graph()
     with pytest.raises(NotImplementedError, match="rematerialization"):
-        make_train_step(Program(g, train=True), SolverConfig(), remat="dots")
+        make_train_step(Program(g, train=True, device="cpu"), SolverConfig(), remat="dots")
     with pytest.raises(ValueError, match="solver_type"):
-        make_train_step(Program(g, train=True), SolverConfig(solver_type="adam"))
+        make_train_step(Program(g, train=True, device="cpu"), SolverConfig(solver_type="adam"))
     with pytest.raises(NotImplementedError, match="parallel"):
-        Trainer(Program(g, train=True), SolverConfig(), mesh=object())
+        Trainer(Program(g, train=True, device="cpu"), SolverConfig(), mesh=object())
 
 
 def _raw_batch(iter_size, seed=3):
@@ -477,7 +477,7 @@ def test_raw_plane_train_and_eval_steps_match_jax():
     jts, jm = jax.jit(jax_make_train_step(jraw, JaxSolverConfig(**cfg)))(
         jax_init_train_state(jp, js), {k: jnp.asarray(v) for k, v in batch.items()},
         jax.random.PRNGKey(0))
-    raw = RawPreprocessProgram(Program(g, train=True), crop=HW)
+    raw = RawPreprocessProgram(Program(g, train=True, device="cpu"), crop=HW)
     assert raw.loss_names == ["loss"] and raw.train and raw.graph is raw.inner.graph
     tts, tm = make_train_step(raw, SolverConfig(**cfg))(
         init_train_state(tp, ts_), {k: torch.from_numpy(v) for k, v in batch.items()},
@@ -490,7 +490,7 @@ def test_raw_plane_train_and_eval_steps_match_jax():
     micro = {k: v[0] for k, v in batch.items()}
     want = jax_make_eval_step(JaxRawPreprocessProgram(JaxProgram(g, train=False), crop=HW))(
         jts.params, jts.state, {k: jnp.asarray(v) for k, v in micro.items()})
-    got = make_eval_step(RawPreprocessProgram(Program(g), crop=HW))(
+    got = make_eval_step(RawPreprocessProgram(Program(g, device="cpu"), crop=HW))(
         tts.params, tts.state, {k: torch.from_numpy(v) for k, v in micro.items()})
     assert got.keys() == want.keys() == {"loss", "top1"}
     for k in got:
@@ -499,10 +499,10 @@ def test_raw_plane_train_and_eval_steps_match_jax():
 
 def test_raw_plane_init_and_what_it_does_not_take():
     g = _mini_train_graph()
-    raw = RawPreprocessProgram(Program(g, train=True), crop=HW)
+    raw = RawPreprocessProgram(Program(g, train=True, device="cpu"), crop=HW)
     batch = {k: torch.from_numpy(v[0]) for k, v in _raw_batch(1).items()}
     params, state = raw.init(torch.Generator().manual_seed(0), batch)
-    want_p, _ = Program(g, train=True).init(torch.Generator().manual_seed(0),
+    want_p, _ = Program(g, train=True, device="cpu").init(torch.Generator().manual_seed(0),
                                             {"data": (N, S, HW, HW, 3), "label": (N,)})
     assert {ln: {k: tuple(v.shape) for k, v in lp.items()} for ln, lp in params.items()} == \
         {ln: {k: tuple(v.shape) for k, v in lp.items()} for ln, lp in want_p.items()}
@@ -527,7 +527,7 @@ def test_checkpoints_cross_between_the_packages(tmp_path):
     _assert_np_trees_close(s, _np_tree(js), 0, 0)
     # reference -> port
     jckpt.save_model(str(tmp_path / "ref.model.npz"), jp, js)
-    p, s = load_model(str(tmp_path / "ref.model.npz"))
+    p, s = load_model(str(tmp_path / "ref.model.npz"), device="cpu")
     for got, want in ((p, tp), (s, ts_)):
         for ln in want:
             for k in want[ln]:
@@ -562,7 +562,7 @@ def test_restore_weights_and_polyak(tmp_path):
     with pytest.raises(ValueError, match="shape"):
         restore_weights([b], tp, ts_)
     save_model(b, half, ts_)
-    avg_p, _ = polyak_average([a, b], out_path=str(tmp_path / "avg.npz"))
+    avg_p, _ = polyak_average([a, b], out_path=str(tmp_path / "avg.npz"), device="cpu")
     torch.testing.assert_close(avg_p["fc"]["w"], tp["fc"]["w"] * 0.75)
     assert os.path.exists(tmp_path / "avg.npz")
 
@@ -582,7 +582,7 @@ def test_trainer_solves_tests_and_snapshots(tmp_path):
     cfg = SolverConfig(base_lr=0.05, lr_policy="fixed", max_iter=4, display=2,
                        average_loss=2, snapshot=3, test_interval=2,
                        snapshot_prefix=str(tmp_path / "eco"))
-    trainer = Trainer(Program(g, train=True), cfg, test_program=Program(g),
+    trainer = Trainer(Program(g, train=True, device="cpu"), cfg, test_program=Program(g, device="cpu"),
                       log_fn=logs.append)
     seen = []
     ts = trainer.solve(init_train_state(tp, ts_), _trainer_batches(g, 4),
@@ -597,7 +597,7 @@ def test_trainer_solves_tests_and_snapshots(tmp_path):
         "eco_iter_4.model.npz", "eco_iter_4.solverstate.npz"]
     metrics = trainer.test(ts, ({k: v[0] for k, v in b.items()} for b in _trainer_batches(g, 2)))
     assert set(metrics) == {"loss", "top1"} and np.isfinite(metrics["loss"])
-    resumed = Trainer(Program(g, train=True), dataclasses.replace(cfg, max_iter=5),
+    resumed = Trainer(Program(g, train=True, device="cpu"), dataclasses.replace(cfg, max_iter=5),
                       log_fn=logs.append).solve(
         init_train_state(tp, ts_), _trainer_batches(g, 1),
         resume_from=str(tmp_path / "eco_iter_4.solverstate.npz"))
@@ -610,7 +610,7 @@ def test_trainer_non_finite_guard_snapshots_the_last_good_state(tmp_path, metric
     _, (tp, ts_) = _shared_weights(g)
     cfg = SolverConfig(base_lr=0.05, lr_policy="fixed", max_iter=6, snapshot=2,
                        snapshot_prefix=str(tmp_path / "eco"))
-    trainer = Trainer(Program(g, train=True), cfg, log_fn=lambda s: None,
+    trainer = Trainer(Program(g, train=True, device="cpu"), cfg, log_fn=lambda s: None,
                       metrics_lag=metrics_lag)
     # the NaN batch is step 1; its loss is read before the snapshot at it=2
     with pytest.raises(FloatingPointError, match="iteration 1"):
@@ -619,17 +619,17 @@ def test_trainer_non_finite_guard_snapshots_the_last_good_state(tmp_path, metric
     assert not any(f.startswith("eco_iter") for f in files)
     if metrics_lag == 0:
         assert files == ["eco_lastgood_iter_1.model.npz", "eco_lastgood_iter_1.solverstate.npz"]
-        p, _ = load_model(str(tmp_path / "eco_lastgood_iter_1.model.npz"))
+        p, _ = load_model(str(tmp_path / "eco_lastgood_iter_1.model.npz"), device="cpu")
         assert all(torch.isfinite(v).all() for lp in p.values() for v in lp.values())
     else:
         assert files == []  # the reference cannot re-read the pre-step state either
     with pytest.raises(ValueError, match="metrics_lag"):
-        Trainer(Program(g, train=True), cfg, metrics_lag=2)
+        Trainer(Program(g, train=True, device="cpu"), cfg, metrics_lag=2)
 
 
 def test_eval_step_returns_the_scalar_tops():
     g = _mini_train_graph()
     _, (tp, ts_) = _shared_weights(g)
     batch = {k: torch.from_numpy(v[0]) for k, v in _batch(g, 1).items()}
-    out = make_eval_step(Program(g))(tp, ts_, batch)
+    out = make_eval_step(Program(g, device="cpu"))(tp, ts_, batch)
     assert set(out) == {"loss", "top1"} and not out["loss"].requires_grad
