@@ -1,17 +1,22 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path once on one NVIDIA GPU, and check it.
 
-    python3 chip_smoke.py [--k3-baseline QCONV_CU] [--k3-table DIR]
+    python3 chip_smoke.py [--k1-baseline PREPROCESS_CU] [--k3-baseline QCONV_CU]
+                          [--k3-table DIR]
 
 Phases (every failure raises; the exit code is then non-zero):
 
 1. The card's name and power limit (nvidia-smi), and the build of the CUDA
    kernels ``eco_tpu_torch/csrc/{preprocess,poolfuse,qconv}.cu``, one nvcc
    each, started together.
-2. The kernel against its plain PyTorch version on the card at the serving
-   shape (8, 16, 256, 340, 3) uint8, random in-range offsets and mirrors, in
-   bf16, f32 and int8: the outputs must be equal (``torch.equal``).  Both are
-   timed with CUDA events, beside the kernel's bound (its bytes at 3.35 TB/s).
+2. K1 against its plain PyTorch version on the card at the serving shape
+   (8, 16, 256, 340, 3) uint8, random in-range offsets and mirrors, from the
+   device and from the host, in bf16, f32 and int8: the outputs must be
+   equal (``torch.equal``).  K1 is timed as device time in CUDA graphs in
+   each type beside its bound (its bytes at 3.35 TB/s), and, with
+   ``--k1-baseline``, an earlier K1 source with the previous C interface in
+   turns with it; the wrapper with host offsets (and the previous wrapper's
+   path in front of the baseline) and the plain version on the host's clock.
 3. Full-width ECO-Lite Kinetics (400 classes, 16 segments, 224 crop) at
    batch 8 with seeded random weights, optimized for inference, served by
    the bf16 ``UInt8Server`` from uint8 frames in pinned host memory: one
@@ -226,46 +231,132 @@ def _bound_ms(moved_bytes: float, ops: float = 0.0, ops_per_s: float = INT8_OPS_
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_kernel(dev) -> dict:
-    """K1 against its plain version at the serving shape; returns its largest
-    error and both times."""
+K1_ITERS = 100
+K1_TYPES = {"bf16": (torch.bfloat16, None), "f32": (torch.float32, None),
+            "int8": (torch.int8, ACT_SCALE)}
+
+
+def _k1_call(fn, frames, offsets, out, act_scale, baseline: bool):
+    """One launch of K1 (``baseline``: an earlier K1 with the previous
+    C interface) on packed int32 device offsets, without the wrapper."""
+    n, s, h, w, _ = frames.shape
+    kind = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}[out.dtype]
+    aug = ((offsets[0].data_ptr(), offsets[1].data_ptr(), offsets[2].data_ptr()) if baseline
+           else (offsets.data_ptr(), 0))
+    err = fn(frames.data_ptr(), *aug, out.data_ptr(), n, s, h, w, out.shape[2], *MEAN, kind,
+             float(act_scale or 1.0), torch.cuda.current_stream(frames.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"K1 launch failed: CUDA error {err}")
+    return out
+
+
+def _build_k1_baseline(path: str):
+    """An earlier K1 source with the previous C interface (``eco_crop_normalize``
+    on separate int32 h_off, w_off and uint8 mirror arrays), built into the
+    build directory and loaded."""
+    out = _build.BUILD_DIR / "libpreprocess_baseline.so"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(out), path],
+                   check=True, timeout=600)
+    fn = ctypes.CDLL(str(out)).eco_crop_normalize
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
+                   + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _baseline_wrapper(fn, frames, h_off, w_off, mirror, out_dtype):
+    """The previous wrapper's path in front of the baseline kernel: each of the
+    offsets and the mirror made a device tensor with ``torch.as_tensor``,
+    which for host values is a blocking copy from pageable memory."""
+    dev = frames.device
+    per_video = [torch.as_tensor(v, device=dev).to(dt).contiguous()
+                 for v, dt in ((h_off, torch.int32), (w_off, torch.int32), (mirror, torch.uint8))]
+    out = torch.empty((*frames.shape[:2], CROP, CROP, 3), dtype=out_dtype, device=dev)
+    return _k1_call(fn, frames, per_video, out, None, baseline=True)
+
+
+def check_kernel(dev, card: str, baseline=None) -> dict:
+    """K1 against its plain version at the serving shape in bf16, f32 and
+    int8 (``torch.equal``).  Then K1 timed as device time in CUDA graphs in
+    each type beside its bound (in turns with ``baseline``, an earlier K1,
+    where given), the plain version and the wrapper on the host's clock,
+    the latter with host offsets as a server gets them."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
     frames = torch.randint(0, 256, (BATCH, SEGMENTS, HEIGHT, WIDTH, 3),
                            dtype=torch.uint8, device=dev, generator=gen)
     h_off = torch.randint(0, HEIGHT - CROP + 1, (BATCH,), device=dev, generator=gen)
     w_off = torch.randint(0, WIDTH - CROP + 1, (BATCH,), device=dev, generator=gen)
     mirror = torch.randint(0, 2, (BATCH,), device=dev, generator=gen).bool()
+    host = (h_off.cpu(), w_off.cpu(), mirror.cpu())
     max_err = 0.0
-    for dtype, act_scale in ((torch.bfloat16, None), (torch.float32, None),
-                             (torch.int8, ACT_SCALE)):
+    for name, (dtype, act_scale) in K1_TYPES.items():
         kw = dict(crop=CROP, mean=MEAN, out_dtype=dtype, act_scale=act_scale)
-        got = preprocess.preprocess_on_device(frames, h_off, w_off, mirror, **kw)
         want = preprocess.crop_normalize_reference(frames, h_off, w_off, mirror, **kw)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        print(f"K1 {str(dtype):15s} kernel vs plain: equal={torch.equal(got, want)} "
-              f"max_abs_err={err}")
-        if not torch.equal(got, want):
-            raise AssertionError(f"K1 disagrees with its plain version in {dtype}")
-        max_err = max(max_err, err)
+        for where, offsets in (("device int64", (h_off, w_off, mirror)), ("host int64", host)):
+            got = preprocess.preprocess_on_device(frames, *offsets, **kw)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            print(f"K1 {name:4s} kernel vs plain, {where} offsets: "
+                  f"equal={torch.equal(got, want)} max_abs_err={err}")
+            if not torch.equal(got, want):
+                raise AssertionError(f"K1 disagrees with its plain version in {name}")
+            max_err = max(max_err, err)
+
+    kernel_fn = preprocess._kernel()
+    packed = preprocess._pack_aug(h_off.int(), w_off.int(), mirror.int(), BATCH, dev)
+    per_video = (h_off.int(), w_off.int(), mirror.to(torch.uint8))
+    ms, bound, base_ms = {}, {}, {}
+    for name, (dtype, act_scale) in K1_TYPES.items():
+        out = torch.empty((BATCH, SEGMENTS, CROP, CROP, 3), dtype=dtype, device=dev)
+        kernel = lambda: _k1_call(kernel_fn, frames, packed, out, act_scale, baseline=False)
+        fns = [kernel]
+        if baseline is not None:
+            base_out = torch.empty_like(out)
+            old = lambda: _k1_call(baseline, frames, per_video, base_out, act_scale, baseline=True)
+            old()
+            if not torch.equal(base_out, kernel()):
+                raise AssertionError(f"baseline K1 and K1 differ in {name}")
+            fns = [old, kernel]
+        # [baseline,] kernel, kernel[, baseline]
+        first = [_graph_ms(f, K1_ITERS) for f in fns]
+        second = [_graph_ms(f, K1_ITERS) for f in reversed(fns)][::-1]
+        ms[name] = (first[-1] + second[-1]) / 2
+        if baseline is not None:
+            base_ms[name] = (first[0] + second[0]) / 2
+        moved = BATCH * SEGMENTS * CROP * CROP * 3 * (1 + out.element_size())
+        bound[name], _ = _bound_ms(moved)
+        print(f"K1 {name:4s} device time (CUDA graphs, {K1_ITERS} launches a graph): "
+              f"{ms[name]:.4f} ms ({first[-1]:.4f}, {second[-1]:.4f}), bound "
+              f"{bound[name]:.4f} ms (bytes: {moved / 1e6:.1f} MB at 3.35 TB/s), "
+              f"{bound[name] / ms[name]:.1%} of it"
+              + (f"; baseline kernel {base_ms[name]:.4f} ms ({first[0]:.4f}, {second[0]:.4f}), "
+                 f"{base_ms[name] / ms[name]:.2f}x K1's time" if baseline is not None else "")
+              + f"; {card}")
 
     kw = dict(crop=CROP, mean=MEAN, out_dtype=torch.bfloat16)
-    kernel = lambda: preprocess.preprocess_on_device(frames, h_off, w_off, mirror, **kw)
+    wrapper = lambda: preprocess.preprocess_on_device(frames, *host, **kw)
     plain = lambda: preprocess.crop_normalize_reference(frames, h_off, w_off, mirror, **kw)
-    # plain, kernel, kernel, plain: drift in clocks hits both alike
-    p1, k1, k2, p2 = (_ms_per_call(f) for f in (plain, kernel, kernel, plain))
-    ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-    moved = BATCH * SEGMENTS * CROP * CROP * 3 * (1 + 2)  # uint8 read + bf16 write
-    print(f"K1 bf16 {tuple(frames.shape)}, 100 launches per block: "
-          f"kernel {ms:.4f} ms ({k1:.4f}, {k2:.4f}), "
-          f"plain {plain_ms:.4f} ms ({p1:.4f}, {p2:.4f}); kernel moves "
-          f"{moved / 1e6:.1f} MB -> {moved / ms / 1e6:.1f} GB/s")
-    # the uint8 frames the windows cover (read once) and the bf16 crops
-    bound_ms, bound_by = _bound_ms(moved)
-    print(f"K1 bound {bound_ms:.4f} ms ({bound_by}: {moved / 1e6:.1f} MB at 3.35 TB/s); no "
-          f"single PyTorch call computes it")
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+    fns = [plain, wrapper]
+    if baseline is not None:
+        fns.append(lambda: _baseline_wrapper(baseline, frames, *host, torch.bfloat16))
+    # on the host's clock, in turns: plain, wrapper[, baseline], [baseline,] wrapper, plain
+    first = [_ms_per_call(f) for f in fns]
+    second = [_ms_per_call(f) for f in reversed(fns)][::-1]
+    host_ms = [(a + b) / 2 for a, b in zip(first, second)]
+    print(f"K1 bf16 host's clock, 100 calls a block, host int64 offsets and bool mirror: "
+          f"wrapper {host_ms[1]:.4f} ms a call ({first[1]:.4f}, {second[1]:.4f})"
+          + (f", the previous wrapper and baseline kernel {host_ms[2]:.4f} ms "
+             f"({first[2]:.4f}, {second[2]:.4f})" if baseline is not None else "")
+          + f"; plain {host_ms[0]:.4f} ms ({first[0]:.4f}, {second[0]:.4f}); no single "
+          f"PyTorch call computes it")
+    rec = {"max_abs_err": max_err, "ms": ms["bf16"], "plain_ms": host_ms[0],
+           "bound_ms": bound["bf16"], "bound_by": "bytes", "library_ms": None,
+           "ms_by_dtype": ms, "bound_ms_by_dtype": bound, "host_ms_per_call": host_ms[1]}
+    if baseline is not None:
+        rec["baseline_ms_by_dtype"] = base_ms
+        rec["baseline_host_ms_per_call"] = host_ms[2]
+    return rec
 
 
 def _requests(count: int):
@@ -1044,6 +1135,9 @@ def main() -> None:
                              "plan arguments) to time in turns with K3 at every int8 layer")
     parser.add_argument("--k3-table", metavar="DIR",
                         help="write K3's per-layer table of each int8 request to DIR as JSON")
+    parser.add_argument("--k1-baseline", metavar="PREPROCESS_CU",
+                        help="an earlier preprocess.cu (the previous C interface, separate "
+                             "offset arrays) to time in turns with K1")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this check runs only on the GPU")
@@ -1060,8 +1154,9 @@ def main() -> None:
     qconv.build_kernel()
     print(f"K1 + K2 + K3 build (three nvcc together) and load: {time.perf_counter() - t0:.2f} s")
     baseline = _build_k3_baseline(args.k3_baseline) if args.k3_baseline else None
+    k1_baseline = _build_k1_baseline(args.k1_baseline) if args.k1_baseline else None
 
-    checked = check_kernel(dev)
+    checked = check_kernel(dev, card, k1_baseline)
     reqs = _requests(1 + TIMED_REQUESTS)
     server, lite, k1_serve, lite_logits16 = serve_float(dev, card, "eco_lite_kinetics", "fc8",
                                                         reqs)

@@ -59,19 +59,25 @@ class UInt8Server:
             "probs" if "probs" in program.output_names else program.output_names[-1]
         )
 
-    def __call__(self, frames_u8, *, h_off=None, w_off=None, mirror=None):
-        dev = self.program.device
-        frames_u8 = torch.as_tensor(frames_u8).to(dev, non_blocking=True)
+    def clips(self, frames_u8, *, h_off=None, w_off=None, mirror=None):
+        """The preprocessing step: frames to the program's device (from pinned
+        host memory without a blocking copy), then the kernel.  Default
+        offsets are the center crop, made on the host: with host offsets the
+        kernel's wrapper needs one small copy and no stream sync."""
+        frames_u8 = torch.as_tensor(frames_u8).to(self.program.device, non_blocking=True)
         n, s, h, w, _ = frames_u8.shape
         if h_off is None:
-            h_off = torch.full((n,), (h - self.crop) // 2, dtype=torch.int32, device=dev)
+            h_off = [(h - self.crop) // 2] * n
         if w_off is None:
-            w_off = torch.full((n,), (w - self.crop) // 2, dtype=torch.int32, device=dev)
+            w_off = [(w - self.crop) // 2] * n
         if mirror is None:
-            mirror = torch.zeros((n,), dtype=torch.bool, device=dev)
-        clips = preprocess_on_device(
+            mirror = [False] * n
+        return preprocess_on_device(
             frames_u8, h_off, w_off, mirror, crop=self.crop, mean=self.mean,
             act_scale=self.in_scale)
+
+    def __call__(self, frames_u8, *, h_off=None, w_off=None, mirror=None):
+        clips = self.clips(frames_u8, h_off=h_off, w_off=w_off, mirror=mirror)
         outs, _ = self.program.apply(
             self.params, self.state, {"data": clips}, capture=[self.output])
         return outs[self.output]
@@ -112,14 +118,12 @@ class RawPreprocessProgram:
             raise NotImplementedError(
                 "the multi-scale raw plane (crop + bilinear resize, ops/resize.py) "
                 "is not ported yet")
-        # pinned host tensors then reach the device without a blocking copy
-        frames, h_off, w_off, mirror = (
-            torch.as_tensor(inputs[k]).to(self.device, non_blocking=True)
-            for k in ("data", "h_off", "w_off", "mirror"))
+        # pinned host frames then reach the device without a blocking copy;
+        # the wrapper ships host offsets in one small copy of its own
+        frames = torch.as_tensor(inputs["data"]).to(self.device, non_blocking=True)
         return preprocess_on_device(
-            frames, h_off, w_off, mirror, crop=self.crop, mean=self.mean,
-            out_dtype=self.compute_dtype or torch.float32,
-        )
+            frames, inputs["h_off"], inputs["w_off"], inputs["mirror"], crop=self.crop,
+            mean=self.mean, out_dtype=self.compute_dtype or torch.float32)
 
     def _inner_inputs(self, inputs):
         return {k: v for k, v in inputs.items() if k != "data" and k not in self._AUG_KEYS}

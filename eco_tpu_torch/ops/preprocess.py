@@ -9,6 +9,8 @@ one pass on the device produces model-ready clips ``(N, S, crop, crop, 3)``.
   first use) or the call raises; a CPU tensor goes to the plain version.
 - ``crop_normalize_reference`` is that plain PyTorch version.
 - ``crop_normalize_launches`` counts kernel launches.
+- ``_pack_aug`` hands the kernel the per-video offsets and mirror flags in
+  one small tensor with no stream sync, from the host or from the card.
 
 Crop offsets are clamped into the frame, as ``lax.dynamic_slice`` clamps in
 the reference's portable twin (``convert/export_hlo.py:_crop_normalize_xla``).
@@ -19,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from eco_tpu_torch.ops import _build
@@ -32,9 +35,10 @@ _OUT_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 def _kernel():
     fn = _build.load("preprocess").eco_crop_normalize
     fn.argtypes = (
-        [ctypes.c_void_p] * 5          # frames, h_off, w_off, mirror, out
-        + [ctypes.c_int] * 5           # videos, segments, height, width, crop
-        + [ctypes.c_float] * 3         # mean (B, G, R)
+        [ctypes.c_void_p] * 2 + [ctypes.c_int]    # frames, aug, aug is int64
+        + [ctypes.c_void_p]                       # out
+        + [ctypes.c_int] * 5                      # videos, segments, height, width, crop
+        + [ctypes.c_float] * 3                    # mean (B, G, R)
         + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p]  # kind, scale, stream
     )
     fn.restype = ctypes.c_int
@@ -71,6 +75,39 @@ def crop_normalize_reference(frames_u8, h_off, w_off, mirror, *, crop: int,
     return y.to(out_dtype).contiguous()
 
 
+_INT32 = np.iinfo(np.int32)
+
+
+def _pack_aug(h_off, w_off, mirror, n: int, device) -> torch.Tensor:
+    """The per-video ``(h_off, w_off, mirror)`` as one ``(3, n)`` integer
+    tensor on ``device``, made without a stream sync.
+
+    Host values (numpy arrays, lists, CPU tensors) are packed into one int32
+    tensor, in pinned memory when ``device`` is a card, and copied with
+    ``non_blocking=True``: one small copy, whose pinned block PyTorch's
+    caching host allocator keeps until the copy is done.  Offsets are
+    clamped to the int32 range first (the kernel clamps them into the
+    frame).  Tensors on a card are stacked where they lie, one launch; the
+    stack keeps int32 or int64, so the kernel reads either."""
+    vals = {"h_off": h_off, "w_off": w_off, "mirror": mirror}
+    for name, v in vals.items():
+        if tuple(np.shape(v)) != (n,):
+            raise ValueError(f"{name} must have shape ({n},), got {tuple(np.shape(v))}")
+    device = torch.device(device)
+    if any(isinstance(v, torch.Tensor) and v.device.type != "cpu" for v in vals.values()):
+        rows = [torch.as_tensor(v).to(device, non_blocking=True) for v in vals.values()]
+        if rows[2].is_floating_point():
+            rows[2] = rows[2] != 0
+        packed = torch.stack(rows)
+        return packed if packed.dtype in (torch.int32, torch.int64) else packed.to(torch.int32)
+    packed = torch.empty((3, n), dtype=torch.int32, pin_memory=device.type == "cuda")
+    rows = packed.numpy()
+    rows[0] = np.clip(np.asarray(h_off), _INT32.min, _INT32.max)
+    rows[1] = np.clip(np.asarray(w_off), _INT32.min, _INT32.max)
+    rows[2] = np.asarray(mirror) != 0
+    return packed.to(device, non_blocking=True)
+
+
 def _crop_normalize_cuda(frames_u8, h_off, w_off, mirror, *, crop: int,
                          mean, out_dtype, act_scale: float | None):
     global crop_normalize_launches
@@ -88,18 +125,10 @@ def _crop_normalize_cuda(frames_u8, h_off, w_off, mirror, *, crop: int,
     if len(mean) != 3:
         raise ValueError(f"mean must have 3 entries, got {mean!r}")
     dev = frames_u8.device
-    per_video = []
-    for name, v, dtype in (("h_off", h_off, torch.int32),
-                           ("w_off", w_off, torch.int32),
-                           ("mirror", mirror, torch.uint8)):
-        v = torch.as_tensor(v, device=dev).to(dtype).contiguous()
-        if tuple(v.shape) != (n,):
-            raise ValueError(f"{name} must have shape ({n},), got {tuple(v.shape)}")
-        per_video.append(v)
+    aug = _pack_aug(h_off, w_off, mirror, n, dev)
     out = torch.empty((n, s, crop, crop, 3), dtype=out_dtype, device=dev)
     err = _kernel()(
-        frames_u8.data_ptr(), per_video[0].data_ptr(), per_video[1].data_ptr(),
-        per_video[2].data_ptr(), out.data_ptr(),
+        frames_u8.data_ptr(), aug.data_ptr(), int(aug.dtype == torch.int64), out.data_ptr(),
         n, s, h, w, crop, float(mean[0]), float(mean[1]), float(mean[2]),
         _OUT_KIND[out_dtype], float(act_scale or 1.0),
         torch.cuda.current_stream(dev).cuda_stream,

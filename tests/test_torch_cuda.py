@@ -75,6 +75,76 @@ def test_kernel_clamps_offsets_like_plain_version(cuda):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("crop", [7, 16, 224])
+@pytest.mark.parametrize("dtype,act_scale", [
+    (torch.float32, None), (torch.bfloat16, None), (torch.int8, 0.37), (torch.int8, 2.0),
+])
+@pytest.mark.parametrize("mirror", ["off", "on"])
+def test_kernel_equals_plain_version_over_a_grid(cuda, crop, dtype, act_scale, mirror):
+    """W*3 = 3*crop + 9 bytes a row: no frame row is 16-byte aligned; the last
+    video's window ends at the tensor's last byte; at crop 7, 21 values a row
+    (no 16-byte store lines up with a row) and N*S*crop = 63 rows, no whole
+    number of row groups."""
+    n, s, h, w = 3, 3, crop + 5, crop + 3
+    frames, h_off, w_off, _ = _batch(cuda, n, s, h, w, crop, seed=crop)
+    h_off[-1], w_off[-1] = h - crop, w - crop
+    flags = torch.full((n,), mirror == "on", device=cuda)
+    kw = dict(crop=crop, mean=MEAN, out_dtype=dtype, act_scale=act_scale)
+    before = preprocess.crop_normalize_launches
+    got = preprocess.preprocess_on_device(frames, h_off, w_off, flags, **kw)
+    torch.cuda.synchronize()
+    assert preprocess.crop_normalize_launches == before + 1
+    assert torch.equal(got, preprocess.crop_normalize_reference(frames, h_off, w_off, flags, **kw))
+
+
+def test_kernel_takes_frames_at_an_odd_address(cuda):
+    """A contiguous view at storage offset 1: no source row is 16-byte
+    aligned and the first chunk starts before the tensor; the kernel reads
+    only the tensor's bytes and equals the plain version."""
+    frames, h_off, w_off, mirror = _batch(cuda, 2, 3, 20, 24, 16, seed=3)
+    base = torch.zeros(1 + frames.numel(), dtype=torch.uint8, device=cuda)
+    base[1:] = frames.flatten()
+    view = base[1:].view(frames.shape)
+    assert view.data_ptr() % 16 != 0
+    h_off[0], w_off[0] = 0, 0  # the window at the tensor's first byte
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        kw = dict(crop=16, mean=MEAN, out_dtype=dtype,
+                  act_scale=0.37 if dtype == torch.int8 else None)
+        assert torch.equal(preprocess.preprocess_on_device(view, h_off, w_off, mirror, **kw),
+                           preprocess.crop_normalize_reference(frames, h_off, w_off, mirror,
+                                                               **kw))
+
+
+def test_kernel_with_host_offsets_never_syncs_the_stream(cuda):
+    """CPU int64 offsets and a bool mirror (as a server gets them), and the
+    server's preprocessing step: no stream sync, and on the card only K1 and
+    one copy of the packed offsets."""
+    frames, h_off, w_off, mirror = _batch(cuda, 2, 4, 80, 96, 64, seed=4)
+    host = (h_off.cpu(), w_off.cpu(), mirror.cpu())
+    kw = dict(crop=64, mean=MEAN)
+    want = preprocess.crop_normalize_reference(frames, *host, out_dtype=torch.bfloat16, **kw)
+    graph = get_model("eco_lite_kinetics", batch=2, num_segments=4, crop_size=64)
+    server = UInt8Server(Program(graph, device=cuda), {}, {}, crop=64)
+    pinned = frames.cpu().pin_memory()
+    preprocess.preprocess_on_device(frames, *host, **kw)  # built and warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = preprocess.preprocess_on_device(frames, *host, **kw)
+        clips = server.clips(pinned, h_off=host[0], w_off=host[1], mirror=host[2])
+        centre = server.clips(pinned)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        preprocess.preprocess_on_device(frames, *host, **kw)
+        torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(clips, want)
+    assert torch.equal(centre, preprocess.crop_normalize_reference(
+        frames, [8, 8], [16, 16], [False, False], out_dtype=torch.bfloat16, **kw))
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("crop_normalize" in nm for nm in names) == 1 and len(names) <= 2, names
+
+
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     frames, h_off, w_off, mirror = _batch(cuda, 2, 2, 20, 24, 16)
     with pytest.raises(ValueError, match="contiguous"):

@@ -34,23 +34,28 @@ def _frames(seed=0):
     return np.random.default_rng(seed).integers(0, 256, (N, S, H, W, 3), dtype=np.uint8)
 
 
+# crop 7: 21 values a row, a multiple of 16 bytes in none of the types (the
+# kernel's unaligned span heads and tails)
+@pytest.mark.parametrize("crop", [CROP, 7])
 @pytest.mark.parametrize("oracle", ["pallas_interpret", "xla_twin"])
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_plain_version_is_bit_exact_with_jax(case, oracle):
+def test_plain_version_is_bit_exact_with_jax(case, oracle, crop):
     jdt, tdt, act_scale = CASES[case]
     frames = _frames()
-    j_args = (jnp.asarray(frames), jnp.asarray(H_OFF), jnp.asarray(W_OFF), jnp.asarray(MIRROR))
+    h_off = np.array([0, 0, H - crop, H - crop], np.int32)
+    w_off = np.array([0, 0, W - crop, W - crop], np.int32)
+    j_args = (jnp.asarray(frames), jnp.asarray(h_off), jnp.asarray(w_off), jnp.asarray(MIRROR))
     if oracle == "pallas_interpret":
-        want = jax_preprocess(*j_args, crop=CROP, mean=MEAN, out_dtype=jdt,
+        want = jax_preprocess(*j_args, crop=crop, mean=MEAN, out_dtype=jdt,
                               interpret=True, act_scale=act_scale)
     else:
-        want = _crop_normalize_xla(*j_args, crop=CROP, mean=MEAN, out_dtype=jdt,
+        want = _crop_normalize_xla(*j_args, crop=crop, mean=MEAN, out_dtype=jdt,
                                    act_scale=act_scale)
     got = preprocess.preprocess_on_device(
-        torch.from_numpy(frames), torch.from_numpy(H_OFF), torch.from_numpy(W_OFF),
-        torch.from_numpy(MIRROR), crop=CROP, mean=MEAN, out_dtype=tdt,
+        torch.from_numpy(frames), torch.from_numpy(h_off), torch.from_numpy(w_off),
+        torch.from_numpy(MIRROR), crop=crop, mean=MEAN, out_dtype=tdt,
         act_scale=act_scale)
-    assert got.dtype == tdt and tuple(got.shape) == (N, S, CROP, CROP, 3)
+    assert got.dtype == tdt and tuple(got.shape) == (N, S, crop, crop, 3)
     assert got.is_contiguous()
     np.testing.assert_array_equal(got.float().numpy(), np.asarray(want, np.float32))
 
@@ -69,6 +74,43 @@ def test_cpu_tensor_uses_plain_version_without_building(monkeypatch):
                                                out_dtype=torch.bfloat16)
     assert got.dtype == torch.bfloat16  # the reference's default clip type
     assert torch.equal(got, want)
+    assert preprocess.crop_normalize_launches == before
+
+
+@pytest.mark.parametrize("kind", ["numpy", "list", "cpu_int64", "cpu_int32", "bool"])
+def test_pack_aug_packs_host_values_into_one_int32_tensor(kind):
+    """Host offsets and mirrors of any integer or bool type become one int32
+    (3, N) tensor: rows h_off, w_off, mirror (as 0/1); offsets past int32
+    are clamped to its range, which the kernel then clamps into the frame."""
+    h, w, m = [0, 5, 2**40, -3], [7, 0, 1, 2], [0, 1, 1, 0]
+    conv = {"numpy": lambda v: np.array(v),
+            "list": list,
+            "cpu_int64": lambda v: torch.tensor(v, dtype=torch.int64),
+            "cpu_int32": lambda v: torch.tensor(np.clip(v, -2**31, 2**31 - 1), dtype=torch.int32),
+            "bool": lambda v: torch.tensor(v, dtype=torch.int64)}[kind]
+    mirror = (torch.tensor(m, dtype=torch.bool) if kind == "bool"
+              else np.array(m, bool) if kind == "numpy" else conv(m))
+    packed = preprocess._pack_aug(conv(h), conv(w), mirror, 4, torch.device("cpu"))
+    assert packed.dtype == torch.int32 and tuple(packed.shape) == (3, 4)
+    assert packed.tolist() == [[0, 5, 2**31 - 1, -3], w, m]
+    with pytest.raises(ValueError, match="w_off must have shape"):
+        preprocess._pack_aug(conv(h), conv(w)[:3], mirror, 4, "cpu")
+    with pytest.raises(ValueError, match="mirror must have shape"):
+        preprocess._pack_aug(conv(h), conv(w), [0, 1], 4, "cpu")
+
+
+def test_cpu_frames_with_numpy_offsets_take_the_plain_version():
+    """numpy offsets and mirrors on CPU frames: the plain version's result,
+    no launch."""
+    frames = torch.from_numpy(_frames(3))
+    before = preprocess.crop_normalize_launches
+    for dtype, act_scale in ((torch.bfloat16, None), (torch.float32, None), (torch.int8, 0.37)):
+        kw = dict(crop=CROP, mean=MEAN, out_dtype=dtype, act_scale=act_scale)
+        got = preprocess.preprocess_on_device(frames, H_OFF, W_OFF, MIRROR, **kw)
+        want = preprocess.crop_normalize_reference(
+            frames, torch.from_numpy(H_OFF), torch.from_numpy(W_OFF),
+            torch.from_numpy(MIRROR), **kw)
+        assert got.dtype == dtype and torch.equal(got, want)
     assert preprocess.crop_normalize_launches == before
 
 
