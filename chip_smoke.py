@@ -71,6 +71,25 @@ Phases (every failure raises; the exit code is then non-zero):
     bound.  End to end, its f32 logits, card against CPU, agree within a
     stated bound, and in argmax where the top-1 margin is clear; its bf16
     logits are held to the float server's.
+12. Online recognition (and, in phase 2, K1 at the online shape (64, 16,
+    224, 224, 3) -> 224, offsets 0, in bf16, int8 and f32: equal, and
+    timed): ``MultiStreamRecognizer`` of 64 streams of seeded uint8 256x340
+    frames over the optimized bf16 ECO-Lite on the uint8 plane, a warm-up
+    tick then three timed (windows/s, the card's ms a tick in CUDA events,
+    host ms); the first tick held stream by stream to a 64-stream f32 tick
+    (logits and labels); one tick of phase 11's int8 ECO-Lite with every K3
+    call held to its plain version; one tick of 2 streams in f32, card
+    against CPU, and streams 0-1 of the 64-stream f32 tick against it.
+13. The fed train path: the bf16 ECO-Lite TRAIN graph through
+    ``RawPreprocessProgram`` and ``Trainer(metrics_lag=1)``, fed by
+    ``VideoPipeline(raw=True)`` over a JPEG frame tree written to a temp
+    directory (``cv2`` is needed), serially and through
+    ``prefetch_to_device`` at depths 1 and 2 in interleaved blocks; the feed
+    alone, and the steps on a resident batch beside the decoding feed and
+    with it closed; the put of one batch; and the race check: from one saved
+    state on the same batches,
+    serial (twice) and prefetched runs give equal losses under
+    ``cudnn.deterministic``.
 
 Prints a ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it fails and
@@ -82,6 +101,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import dataclasses
 import itertools
 import json
 import math
@@ -89,12 +109,22 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
+import numpy as np
 import torch
 
-from eco_tpu_torch.apps import RawPreprocessProgram, UInt8Server
+from eco_tpu_torch.apps import MultiStreamRecognizer, RawPreprocessProgram, UInt8Server
+from eco_tpu_torch.apps import online
 from eco_tpu_torch.convert import optimize_for_inference, quantize_for_serving
+from eco_tpu_torch.data import (
+    TransformConfig,
+    VideoDataConfig,
+    VideoPipeline,
+    prefetch_to_device,
+)
 from eco_tpu_torch.models import build_eco_lite, get_model
 from eco_tpu_torch.ops import _build, pool, poolfuse, preprocess, qconv
 from eco_tpu_torch.runtime import Program, get_impl
@@ -175,6 +205,15 @@ INT8_ARGMAX_MARGIN = 0.33
 # the same calibration: 3.25e-2 for ECO-Lite at crop 64, 2.09e-2 for ECO-Full
 # at crop 224 (its 7x7 pool needs 224)
 INT8_VS_FLOAT_REL_L2_BOUND = {"eco_lite_kinetics": 9.8e-2, "eco_full_kinetics": 6.3e-2}
+# Online recognition: 64 concurrent streams (the reference bench's
+# bench_online), one warm-up tick then ONLINE_TICKS timed ones; stream k's
+# frame t is ONLINE_FRAMES[(7 k + t) % len]
+ONLINE_STREAMS, ONLINE_TICKS, ONLINE_FRAME_POOL = 64, 3, 48
+# The fed train path: the frame tree of bench.py's bench_train_e2e (24
+# videos x 24 frames), serial / depth-1 / depth-2 blocks of E2E_BLOCK steps in
+# E2E_ROUNDS interleaved rounds, and RACE_STEPS steps for the race check
+E2E_VIDEOS, E2E_FRAMES = 24, 24
+E2E_ROUNDS, E2E_BLOCK, RACE_STEPS, PUT_REPS = 3, 6, 3, 5
 
 
 def _card() -> str:
@@ -993,10 +1032,11 @@ def _calibration_batches(dev):
     return batches
 
 
-def _k3_held_to_plain(server, request) -> list:
-    """One request of ``server`` with every K3 call held against its plain
-    version on the same operands (``torch.equal``); returns the input
-    shapes checked, one per call."""
+@contextlib.contextmanager
+def _k3_held():
+    """Inside, every K3 call is held against its plain version on the same
+    operands (``torch.equal``); yields the list of the input shapes checked,
+    one per call."""
     kernel = qconv.qconv_nd
     checked = []
 
@@ -1010,12 +1050,10 @@ def _k3_held_to_plain(server, request) -> list:
 
     qconv.qconv_nd = held
     try:
-        frames, aug = request
-        server(frames, **aug)
+        yield checked
         torch.cuda.synchronize()
     finally:
         qconv.qconv_nd = kernel
-    return checked
 
 
 def _int8_layers_card_vs_cpu(dev, graph, params, state, request) -> tuple[int, float]:
@@ -1091,7 +1129,9 @@ def serve_int8(dev, card: str, model: str, fc: str, float_side, reqs):
           f"{[round(t, 3) for t in per_req]}, median {statistics.median(per_req):.3f} ms; "
           f"{videos_s:.1f} videos/s int8 + bf16, host->device copy included; {card}")
     _check_probs(outs)
-    checked = _k3_held_to_plain(server, reqs[1])
+    with _k3_held() as checked:
+        frames, aug = reqs[1]
+        server(frames, **aug)
     if len(checked) != n_q:
         raise AssertionError(f"{model} int8: {len(checked)} K3 calls held to the plain "
                              f"version, {n_q} int8 layers")
@@ -1125,7 +1165,405 @@ def serve_int8(dev, card: str, model: str, fc: str, float_side, reqs):
           f"{int((logits8.argmax(-1) == float_logits16.argmax(-1)).sum())} of {BATCH}")
     if not rel <= INT8_VS_FLOAT_REL_L2_BOUND[model]:
         raise AssertionError(f"{model} int8 logits off the float server's by rel L2 {rel}")
-    return launches[0], launches[2], server
+    return launches[0], launches[2], server, (qprog, qp, qs)
+
+
+def check_k1_online(dev, card: str) -> dict:
+    """K1 at the online app's shape: frames already center-cropped on the host,
+    (64, 16, 224, 224, 3) -> 224 at offsets 0, in bf16, int8 and f32, against
+    its plain version (``torch.equal``), then timed as device time in CUDA
+    graphs beside its bound."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    n = ONLINE_STREAMS
+    frames = torch.randint(0, 256, (n, SEGMENTS, CROP, CROP, 3), dtype=torch.uint8, device=dev,
+                           generator=gen)
+    zeros, flags = [0] * n, [False] * n
+    packed = preprocess._pack_aug(zeros, zeros, flags, n, dev)
+    kernel_fn = preprocess._kernel()
+    max_err, ms, bound = 0.0, {}, {}
+    for name in ("bf16", "int8", "f32"):
+        dtype, act_scale = K1_TYPES[name]
+        kw = dict(crop=CROP, mean=MEAN, out_dtype=dtype, act_scale=act_scale)
+        got = preprocess.preprocess_on_device(frames, zeros, zeros, flags, **kw)
+        want = preprocess.crop_normalize_reference(frames, zeros, zeros, flags, **kw)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        if not torch.equal(got, want):
+            raise AssertionError(f"K1 disagrees with its plain version at the online shape "
+                                 f"in {name}")
+        max_err = max(max_err, err)
+        out = torch.empty_like(got)
+        del got, want
+        call = lambda: _k1_call(kernel_fn, frames, packed, out, act_scale, baseline=False)
+        first, second = _graph_ms(call, K1_ITERS // 4), _graph_ms(call, K1_ITERS // 4)
+        ms[name] = (first + second) / 2
+        moved = frames.numel() * (1 + out.element_size())
+        bound[name], _ = _bound_ms(moved)
+        print(f"K1 {name:4s} online shape {tuple(frames.shape)} -> {CROP}, offsets 0: kernel "
+              f"vs plain equal=True max_abs_err={err}; device time (CUDA graphs) "
+              f"{ms[name]:.4f} ms ({first:.4f}, {second:.4f}), bound {bound[name]:.4f} ms "
+              f"(bytes: {moved / 1e6:.1f} MB at 3.35 TB/s), {bound[name] / ms[name]:.1%} of it; "
+              f"{card}")
+        del out
+    return {"online_max_abs_err": max_err, "online_ms_by_dtype": ms,
+            "online_bound_ms_by_dtype": bound}
+
+
+def _tick(rec, pool, tick: int, streams: int):
+    """One window tick of ``rec``: SEGMENTS pushes of one frame per stream;
+    returns the last push's results (one per stream)."""
+    for t in range(SEGMENTS):
+        i = tick * SEGMENTS + t
+        out = rec.push_frames([pool[(7 * k + i) % len(pool)] for k in range(streams)])
+    return out
+
+
+def _check_tick(results, streams: int, what: str):
+    if len(results) != streams or any(r is None for r in results):
+        raise AssertionError(f"{what}: a tick gave {results if len(results) < 4 else '...'}")
+    for label, smoothed in results:
+        if smoothed.shape != (NUM_CLASSES,) or not np.isfinite(smoothed).all():
+            raise AssertionError(f"{what}: smoothed logits {smoothed.shape}, finite "
+                                 f"{np.isfinite(smoothed).all()}")
+        if label != int(np.argmax(smoothed)):
+            raise AssertionError(f"{what}: label {label} is not the argmax")
+
+
+@contextlib.contextmanager
+def _online_device_time(rec, spans: list):
+    """CUDA events from K1's launch (after the frames' copy) to the tick's
+    logits on the host, and the host's clock inside the forward call, one
+    pair a forward, appended to ``spans`` as (device ms, forward call ms)."""
+    k1, forward = online.preprocess_on_device, rec.single._forward
+
+    def timed_k1(*args, **kw):
+        timed_k1.start = torch.cuda.Event(enable_timing=True)
+        timed_k1.start.record()
+        return k1(*args, **kw)
+
+    def timed_forward(*args, **kw):
+        t0 = time.perf_counter()
+        out = forward(*args, **kw)
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        end.synchronize()
+        spans.append((timed_k1.start.elapsed_time(end), (time.perf_counter() - t0) * 1e3))
+        return out
+
+    online.preprocess_on_device, rec.single._forward = timed_k1, timed_forward
+    try:
+        yield
+    finally:
+        online.preprocess_on_device = k1
+        del rec.single._forward
+
+
+def online_phase(dev, card: str, lite, int8_lite) -> dict:
+    """64-stream online recognition of full-width ECO-Lite, optimized, bf16,
+    on the uint8 plane (K1 in every tick's forward), its first tick held
+    stream by stream to a 64-stream f32 tick; one tick of the int8 ECO-Lite
+    with every K3 call held to its plain version; one tick of 2 streams in
+    f32, card against CPU.  Returns K1's and K3's launches by path."""
+    graph, params, state = lite
+    pool = [np.random.default_rng(SEED + 7 + i).integers(0, 256, (HEIGHT, WIDTH, 3),
+                                                         dtype=np.uint8)
+            for i in range(ONLINE_FRAME_POOL)]
+    rec = MultiStreamRecognizer(Program(graph, compute_dtype=torch.bfloat16, device=dev),
+                                params, state, num_streams=ONLINE_STREAMS,
+                                num_segments=SEGMENTS, crop_size=CROP, plane="uint8",
+                                output="fc8")
+    spans, walls = [], []
+    _reset_counts()
+    with _online_device_time(rec, spans):
+        for tick in range(1 + ONLINE_TICKS):
+            t0 = time.perf_counter()
+            results = _tick(rec, pool, tick, ONLINE_STREAMS)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            _check_tick(results, ONLINE_STREAMS, "online bf16")
+            if tick == 0:
+                first = np.stack([r[1] for r in results])
+    launches = _counts()
+    if launches != (1 + ONLINE_TICKS, 0, 0):
+        raise AssertionError(f"online launched K1, K2, K3 {launches} times in "
+                             f"{1 + ONLINE_TICKS} ticks")
+    timed = walls[1:]
+    windows_s = ONLINE_STREAMS * ONLINE_TICKS / (sum(timed) / 1e3)
+    device = [d for d, _ in spans[1:]]
+    call = [c for _, c in spans[1:]]
+    host = [w - c for w, c in zip(timed, call)]
+    print(f"online: {ONLINE_STREAMS} streams of uint8 {HEIGHT}x{WIDTH} frames, ECO-Lite bf16, "
+          f"{SEGMENTS}-frame windows; warm-up tick {walls[0]:.1f} ms; {ONLINE_TICKS} timed ticks "
+          f"(ms, in order) {[round(t, 2) for t in timed]}: {windows_s:.1f} windows/s, full loop; "
+          f"K1 + forward on the card (CUDA events, K1's launch to the logits on the host) "
+          f"{[round(t, 3) for t in device]} ms a tick, median {statistics.median(device):.3f}; "
+          f"the forward call on the host's clock {[round(t, 2) for t in call]} ms; host ms a "
+          f"tick outside it (per-frame crops, windows) {[round(t, 2) for t in host]}; K1 "
+          f"launches {launches[0]}; {card}")
+
+    # the timed bf16 tick held, stream by stream, to a 64-stream f32 tick
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rec32 = MultiStreamRecognizer(Program(graph, compute_dtype=torch.float32, device=dev),
+                                  params, state, num_streams=ONLINE_STREAMS,
+                                  num_segments=SEGMENTS, crop_size=CROP, plane="uint8",
+                                  output="fc8")
+    _reset_counts()
+    results = _tick(rec32, pool, 0, ONLINE_STREAMS)
+    k1_32 = _counts()[0]
+    del rec32
+    _check_tick(results, ONLINE_STREAMS, "online f32")
+    first32 = np.stack([r[1] for r in results])
+    rel16 = np.linalg.norm(first - first32, axis=1) / np.linalg.norm(first32, axis=1)
+    # a label may change only where the f32 top-1 margin is within twice the
+    # stream's largest |bf16 - f32| logit difference
+    top2 = np.sort(first32, axis=1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] > 2 * np.abs(first - first32).max(axis=1)
+    same = (first.argmax(1) == first32.argmax(1))[clear].all()
+    print(f"online bf16 tick vs a {ONLINE_STREAMS}-stream f32 tick on the card (TF32 off), "
+          f"stream by stream: smoothed logits rel L2 max {rel16.max():.3e}, median "
+          f"{np.median(rel16):.3e} (bound {BF16_LOGITS_REL_L2_BOUND}); labels equal on the "
+          f"{int(clear.sum())} streams whose f32 margin exceeds twice their largest "
+          f"difference: {same}; streams with distinct f32 logits "
+          f"{len(np.unique(first32.round(4), axis=0))}")
+    if not (rel16.max() <= BF16_LOGITS_REL_L2_BOUND and same and k1_32 == 1):
+        raise AssertionError(f"online bf16 tick off the f32 tick: per-stream rel L2 {rel16} "
+                             f"(K1 launches {k1_32})")
+
+    qprog, qp, qs = int8_lite
+    rec8 = MultiStreamRecognizer(qprog, qp, qs, num_streams=ONLINE_STREAMS,
+                                 num_segments=SEGMENTS, crop_size=CROP, plane="uint8",
+                                 output="fc8")
+    n_q = sum(l.type.lower() in ("qconvolution", "qinnerproduct") for l in qprog.exec_layers)
+    _reset_counts()
+    with _k3_held() as checked:
+        results = _tick(rec8, pool, 0, ONLINE_STREAMS)
+    k1_8, k2_8, k3_8 = _counts()
+    _check_tick(results, ONLINE_STREAMS, "online int8")
+    if rec8.single.in_scale is None or (k1_8, k2_8, k3_8) != (1, 0, n_q) or len(checked) != n_q:
+        raise AssertionError(f"online int8 tick: input plane scale {rec8.single.in_scale}, "
+                             f"K1 {k1_8}, K2 {k2_8}, K3 {k3_8} launches, {len(checked)} held, "
+                             f"{n_q} int8 layers")
+    logits8 = np.stack([r[1] for r in results])
+    rel8 = float(np.linalg.norm(logits8 - first) / np.linalg.norm(first))
+    print(f"online int8 tick ({ONLINE_STREAMS} streams, int8 ECO-Lite, bf16 between int8 "
+          f"layers): K1 (int8 out) launches {k1_8}, K3 launches {k3_8} = {n_q} int8 layers, each "
+          f"equal to its plain version on the same operands; logits vs the bf16 float tick: "
+          f"rel L2 {rel8:.4f} (bound {INT8_VS_FLOAT_REL_L2_BOUND['eco_lite_kinetics']})")
+    if not rel8 <= INT8_VS_FLOAT_REL_L2_BOUND["eco_lite_kinetics"]:
+        raise AssertionError(f"online int8 logits off the float tick's by rel L2 {rel8}")
+
+    smoothed = []
+    _reset_counts()
+    for where, p, s in ((dev, params, state), ("cpu", _to(params, "cpu"), _to(state, "cpu"))):
+        pair = MultiStreamRecognizer(Program(graph, compute_dtype=torch.float32, device=where),
+                                     p, s, num_streams=2, num_segments=SEGMENTS,
+                                     crop_size=CROP, plane="uint8", output="fc8")
+        results = _tick(pair, pool, 0, 2)
+        _check_tick(results, 2, f"online f32 on {where}")
+        smoothed.append(np.stack([r[1] for r in results]))
+    k1_pair = _counts()[0]
+    rel = float(np.linalg.norm(smoothed[0] - smoothed[1]) / np.linalg.norm(smoothed[1]))
+    # streams 0 and 1 of the 64-stream f32 tick saw the same frames
+    rel64 = float(np.linalg.norm(first32[:2] - smoothed[1]) / np.linalg.norm(smoothed[1]))
+    print(f"online f32 tick, 2 streams, card vs CPU (TF32 off): smoothed logits rel L2 "
+          f"{rel:.3e}, streams 0-1 of the {ONLINE_STREAMS}-stream card tick vs CPU {rel64:.3e} "
+          f"(bound {F32_CARD_VS_CPU_REL_L2_BOUND}); labels card "
+          f"{smoothed[0].argmax(-1).tolist()}, CPU {smoothed[1].argmax(-1).tolist()}")
+    if not max(rel, rel64) <= F32_CARD_VS_CPU_REL_L2_BOUND or k1_pair != 1:
+        raise AssertionError(f"online f32 on the card off the CPU's by rel L2 {rel}, {rel64} "
+                             f"(K1 launches {k1_pair})")
+    return {"windows_s": windows_s, "k1": {"online": launches[0], "online_f32": k1_32,
+                                           "online_int8": k1_8,
+                                           "online_card_vs_cpu": k1_pair},
+            "k3": {"online_int8": k3_8}}
+
+
+def _frame_tree(root: str, cv2) -> str:
+    """bench.py's bench_train_e2e data set: E2E_VIDEOS directories of
+    E2E_FRAMES JPEG frames, 256x340, and their list file."""
+    rng = np.random.default_rng(SEED)
+    base = rng.integers(0, 200, (HEIGHT, WIDTH, 3), np.uint8)
+    lines = []
+    for v in range(E2E_VIDEOS):
+        d = os.path.join(root, f"vid{v}")
+        os.makedirs(d)
+        for f in range(E2E_FRAMES):
+            img = np.clip(base.astype(np.int16) + int(v * 3 + f) % 40, 0, 255).astype(np.uint8)
+            cv2.imwrite(os.path.join(d, "img_%04d.jpg" % (f + 1)), img)
+        lines.append(f"{d} {E2E_FRAMES} {v % 10}")
+    lst = os.path.join(root, "list.txt")
+    with open(lst, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return lst
+
+
+def _put_times(host, dev, card: str):
+    """One batch to the card, on the host's clock to the copy's end, PUT_REPS
+    times in turns: ``prefetch_to_device``'s put (pin, side-stream copy),
+    its two parts alone, and a pageable ``.to(device)``."""
+    def pin():
+        return {k: torch.from_numpy(v).pin_memory() for k, v in host.items()}
+
+    pinned = pin()
+    kinds = {"prefetch put": lambda: next(prefetch_to_device(iter([host]), 1, device=dev)),
+             "pin_memory alone": pin,
+             "pinned copy alone": lambda: {k: v.to(dev, non_blocking=True)
+                                           for k, v in pinned.items()},
+             "pageable .to(device)": lambda: {k: torch.from_numpy(v).to(dev)
+                                              for k, v in host.items()}}
+    times = {k: [] for k in kinds}
+    for _ in range(PUT_REPS):
+        for kind, fn in kinds.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[kind].append((time.perf_counter() - t0) * 1e3)
+    mb = sum(v.nbytes for v in host.values()) / 1e6
+    print(f"train_e2e put of one batch ({mb:.1f} MB), host's clock to the copy's end, "
+          f"{PUT_REPS} reps in turns: " + "; ".join(
+              f"{k} {[round(t, 2) for t in v]} ms, median {statistics.median(v):.2f}"
+              for k, v in times.items()) + f"; {card}")
+
+
+def _micro(batch):
+    return {k: v[None] for k, v in batch.items()}
+
+
+def _e2e_block(prog, cfg, ts, feed, steps: int):
+    """``steps`` steps of a fresh ``Trainer(metrics_lag=1)`` from ``ts`` on
+    ``feed``; returns the state, the ms between the CUDA events recorded after
+    consecutive steps (the first step, which builds the trainer and starts the
+    feed, left out; the ``train`` phase's measure) and the losses."""
+    step = make_train_step(prog, cfg)
+    events = []
+
+    def timed_step(ts, batch, generator):
+        out = step(ts, batch, generator)
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+        return out
+
+    trainer = Trainer(prog, dataclasses.replace(cfg, max_iter=ts.it + steps), step_fn=timed_step,
+                      metrics_lag=1, log_fn=lambda _: None)
+    losses = []
+    ts = trainer.solve(ts, feed, hooks=[lambda it, _ts, m: losses.append(float(m["loss"]))])
+    torch.cuda.synchronize()
+    return ts, [a.elapsed_time(b) for a, b in zip(events, events[1:])], losses
+
+
+def _ms(times) -> str:
+    return f"{[round(t, 1) for t in times]} (median {statistics.median(times):.2f})"
+
+
+def train_e2e(dev, card: str) -> dict:
+    """The fed train path: the bf16 ECO-Lite TRAIN graph through
+    ``RawPreprocessProgram`` and ``Trainer(metrics_lag=1)``, fed by
+    ``VideoPipeline(raw=True)`` over a JPEG frame tree, serially and through
+    ``prefetch_to_device`` at depths 1 and 2, in interleaved blocks; the feed
+    alone, the steps on a resident batch beside the decoding feed and with the
+    feed closed; the put of one batch, pinned and pageable; and the race
+    check.  Returns K1's launches on the fed path and in the race check."""
+    import cv2
+
+    graph = build_eco_lite(NUM_CLASSES, SEGMENTS, crop_size=CROP, with_loss=True, batch=BATCH)
+    prog = RawPreprocessProgram(
+        Program(graph, train=True, compute_dtype=torch.bfloat16, device=dev), crop=CROP, mean=MEAN)
+    cfg = SolverConfig(**SOLVER, display=0, snapshot=0)
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        dcfg = VideoDataConfig(
+            source=_frame_tree(root, cv2), batch_size=BATCH, num_segments=SEGMENTS,
+            new_height=HEIGHT, new_width=WIDTH, shuffle=True, raw=True,
+            transform=TransformConfig(crop_size=CROP, multi_scale=False, mean_values=MEAN))
+        src = VideoPipeline(dcfg, train=True, seed=SEED)
+        tree_s = time.perf_counter() - t0
+        try:
+            first = _micro(src.next_batch())
+            ts = init_train_state(*prog.init(torch.Generator().manual_seed(SEED),
+                                             {k: v[0] for k, v in first.items()}))
+            _reset_counts()
+            ts, _, _ = _e2e_block(prog, cfg, ts, iter([first]), 1)
+            times = {"serial": [], 1: [], 2: []}
+            losses = []
+            for _ in range(E2E_ROUNDS):
+                for mode in times:
+                    batches = (_micro(src.next_batch()) for _ in range(E2E_BLOCK))
+                    feed = batches if mode == "serial" else prefetch_to_device(batches, mode,
+                                                                               device=dev)
+                    ts, ms, got = _e2e_block(prog, cfg, ts, feed, E2E_BLOCK)
+                    times[mode] += ms
+                    losses += got
+            k1, k2, k3 = _counts()
+            steps = 1 + E2E_ROUNDS * 3 * E2E_BLOCK
+            if (k1, k2, k3) != (steps, 0, 0) or not all(map(math.isfinite, losses)):
+                raise AssertionError(f"train_e2e: K1, K2, K3 launched {(k1, k2, k3)} times in "
+                                     f"{steps} steps; losses {losses}")
+            print(f"train_e2e: feed VideoPipeline(raw=True) over {E2E_VIDEOS} videos x "
+                  f"{E2E_FRAMES} JPEG frames (cv2 {cv2.__version__}; tree written in "
+                  f"{tree_s:.1f} s); bf16 ECO-Lite, batch {BATCH} x {SEGMENTS}, "
+                  f"Trainer(metrics_lag=1); ms a step, CUDA events between steps, "
+                  f"{E2E_ROUNDS} interleaved rounds of {E2E_BLOCK}-step blocks (each block's "
+                  f"first step left out): serial {_ms(times['serial'])}; prefetch depth 1 "
+                  f"{_ms(times[1])}; depth 2 {_ms(times[2])}; "
+                  f"{BATCH / statistics.median(times[1]) * 1e3:.1f} train videos/s at depth 1; "
+                  f"losses finite; K1 launches {k1}; {card}")
+
+            # the feed alone, drained without steps past the batches its
+            # queue holds (two deep)
+            for _ in range(2):
+                src.next_batch()
+            t0 = time.perf_counter()
+            for _ in range(2 * E2E_BLOCK):
+                host = src.next_batch()
+            drain_ms = (time.perf_counter() - t0) * 1e3 / (2 * E2E_BLOCK)
+            race = [_micro(src.next_batch()) for _ in range(RACE_STEPS)]
+            # steps on a batch resident on the card while another thread
+            # drains the decoding feed, its batches dropped
+            resident = next(prefetch_to_device(iter([_micro(host)]), 1, device=dev))
+            beside_ms = []
+
+            def drain():
+                t0 = time.perf_counter()
+                for _ in range(2 * E2E_BLOCK):
+                    src.next_batch()
+                beside_ms.append((time.perf_counter() - t0) * 1e3 / (2 * E2E_BLOCK))
+
+            drainer = threading.Thread(target=drain)
+            drainer.start()
+            ts, beside, _ = _e2e_block(prog, cfg, ts, itertools.repeat(resident), E2E_BLOCK)
+            drainer.join()
+        finally:
+            src.close()
+    # the same steps with the feed closed: no decode thread left on the host
+    ts, alone, _ = _e2e_block(prog, cfg, ts, itertools.repeat(resident), 2 * E2E_BLOCK)
+    del resident
+    print(f"train_e2e apart: the feed drained without steps {drain_ms:.2f} ms a batch "
+          f"({BATCH / drain_ms * 1e3:.1f} videos/s); steps on a resident batch beside the "
+          f"decoding feed {_ms(beside)} ms (the feed meanwhile {beside_ms[0]:.2f} ms a batch), "
+          f"with the feed closed {_ms(alone)} ms; {card}")
+    _put_times(host, dev, card)
+
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    _reset_counts()
+    try:
+        runs = {}
+        for name, feed in (("serial", lambda: iter(race)), ("serial again", lambda: iter(race)),
+                           ("prefetch depth 1", lambda: prefetch_to_device(iter(race), 1,
+                                                                          device=dev)),
+                           ("prefetch depth 2", lambda: prefetch_to_device(iter(race), 2,
+                                                                          device=dev))):
+            _, _, runs[name] = _e2e_block(prog, cfg, ts, feed(), RACE_STEPS)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    race_k1 = _counts()[0]
+    print(f"train_e2e race check, {RACE_STEPS} steps from one saved state on the same batches, "
+          f"cudnn.deterministic: " + "; ".join(f"{k} {v}" for k, v in runs.items()))
+    if len({tuple(v) for v in runs.values()}) != 1 or race_k1 != len(runs) * RACE_STEPS:
+        raise AssertionError(f"train_e2e: the losses differ between the runs {runs} "
+                             f"(K1 launches {race_k1})")
+    return {"train_e2e": k1, "train_e2e_race": race_k1}
 
 
 def main() -> None:
@@ -1157,6 +1595,7 @@ def main() -> None:
     k1_baseline = _build_k1_baseline(args.k1_baseline) if args.k1_baseline else None
 
     checked = check_kernel(dev, card, k1_baseline)
+    checked.update(check_k1_online(dev, card))
     reqs = _requests(1 + TIMED_REQUESTS)
     server, lite, k1_serve, lite_logits16 = serve_float(dev, card, "eco_lite_kinetics", "fc8",
                                                         reqs)
@@ -1172,25 +1611,30 @@ def main() -> None:
                                                        reqs)
     k1_full_k2, k2_full = serve_with_pool_kernel(server, reqs, card, "eco_full_kinetics", 4)
     del server
-    k1_int8_lite, k3_int8_lite, server = serve_int8(dev, card, "eco_lite_kinetics", "fc8",
-                                                    lite + (lite_logits16,), reqs)
+    k1_int8_lite, k3_int8_lite, server, int8_lite = serve_int8(
+        dev, card, "eco_lite_kinetics", "fc8", lite + (lite_logits16,), reqs)
     timed = {}
     k3_request = {"eco_lite_kinetics": k3_request_layers(server, reqs[1], "eco_lite_kinetics",
                                                          card, baseline, timed, args.k3_table)}
     del server
-    k1_int8_full, k3_int8_full, server = serve_int8(dev, card, "eco_full_kinetics", "fc8N",
-                                                    full + (full_logits16,), reqs)
+    online_counts = online_phase(dev, card, lite, int8_lite)
+    del int8_lite
+    k1_int8_full, k3_int8_full, server, _ = serve_int8(dev, card, "eco_full_kinetics", "fc8N",
+                                                       full + (full_logits16,), reqs)
     k3_request["eco_full_kinetics"] = k3_request_layers(server, reqs[1], "eco_full_kinetics",
                                                         card, baseline, timed, args.k3_table)
     del server
+    k1_e2e = train_e2e(dev, card)
     for name in ("jax", "eco_tpu"):
         if name in sys.modules:
             raise AssertionError(f"the port imported {name}")
     k1_paths = {"serve": k1_serve, "train": k1_train, "test": len(test_batches),
                 "serve_k2": k1_k2serve, "serve_full": k1_full, "serve_full_k2": k1_full_k2,
-                "serve_int8_lite": k1_int8_lite, "serve_int8_full": k1_int8_full}
+                "serve_int8_lite": k1_int8_lite, "serve_int8_full": k1_int8_full,
+                **online_counts["k1"], **k1_e2e}
     k2_paths = {"test": k2_test, "serve_k2": k2_serve, "serve_full_k2": k2_full}
-    k3_paths = {"serve_int8_lite": k3_int8_lite, "serve_int8_full": k3_int8_full}
+    k3_paths = {"serve_int8_lite": k3_int8_lite, "serve_int8_full": k3_int8_full,
+                **online_counts["k3"]}
     records = [
         {
             "name": "crop_normalize",

@@ -26,7 +26,13 @@ between the packages as ``graph_to_json`` text.
 - ``eco_tpu_torch.apps``     -- ``UInt8Server``: uint8 frames in, class
                                 probabilities out, float or int8 graphs;
                                 ``RawPreprocessProgram``:
-                                the uint8 plane in front of any Program.
+                                the uint8 plane in front of any Program;
+                                online recognition, one stream or many;
+                                10-crop evaluation.
+- ``eco_tpu_torch.data``     -- the host data planes (copies: video lists,
+                                sampling, decoding, ``VideoPipeline``, the
+                                Caffe databases, window and segmentation
+                                sources) and ``prefetch_to_device``.
 - ``eco_tpu_torch.train``    -- Caffe-exact solver step, lr policies,
                                 checkpoints in the reference's files, and
                                 the ``Trainer``.

@@ -8,10 +8,12 @@ imports no JAX, so it also runs where JAX is not installed:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 
+import numpy as np
 import pytest
 import torch
 
 from eco_tpu_torch.apps import RawPreprocessProgram, UInt8Server
+from eco_tpu_torch.data import prefetch_to_device
 from eco_tpu_torch.convert import optimize_for_inference, quantize_for_serving
 from eco_tpu_torch.models import build_eco_lite, get_model
 from eco_tpu_torch.ops import poolfuse, preprocess, qconv
@@ -95,6 +97,42 @@ def test_kernel_equals_plain_version_over_a_grid(cuda, crop, dtype, act_scale, m
     torch.cuda.synchronize()
     assert preprocess.crop_normalize_launches == before + 1
     assert torch.equal(got, preprocess.crop_normalize_reference(frames, h_off, w_off, flags, **kw))
+
+
+@pytest.mark.parametrize("n,s,size", [(2, 16, 224), (64, 16, 224), (3, 4, 7)])
+@pytest.mark.parametrize("dtype,act_scale", [
+    (torch.float32, None), (torch.bfloat16, None), (torch.int8, 0.37)])
+def test_kernel_on_frames_already_cropped(cuda, n, s, size, dtype, act_scale):
+    """The online app's shape: frames center-cropped on the host, so H = W =
+    crop and the offsets are 0 (one row group a plane, a 672-byte row at
+    224); at 7, 21-byte rows."""
+    gen = torch.Generator(device=cuda).manual_seed(size + n)
+    frames = torch.randint(0, 256, (n, s, size, size, 3), dtype=torch.uint8, device=cuda,
+                           generator=gen)
+    zeros, flags = [0] * n, [False] * n
+    kw = dict(crop=size, mean=MEAN, out_dtype=dtype, act_scale=act_scale)
+    before = preprocess.crop_normalize_launches
+    got = preprocess.preprocess_on_device(frames, zeros, zeros, flags, **kw)
+    torch.cuda.synchronize()
+    assert preprocess.crop_normalize_launches == before + 1
+    assert torch.equal(got, preprocess.crop_normalize_reference(frames, zeros, zeros, flags, **kw))
+
+
+def test_prefetch_to_device_hands_over_copied_batches_in_order(cuda):
+    """The side-stream copies of 64 MB batches, two ahead: a kernel that the
+    consumer launches at once reads the whole batch (its stream waits on the
+    copy), and the batches' memory is not handed to the next ones while the
+    consumer's kernels may still read it (``record_stream``)."""
+    n = 6
+    host = [{"x": np.full((16, 1 << 22), i, np.uint8), "i": np.asarray([i, -i], np.int32)}
+            for i in range(n)]
+    sums = []
+    for b in prefetch_to_device(iter(host), 2, device=cuda):
+        assert b["x"].device.type == "cuda" and b["x"].is_pinned() is False
+        sums.append(b["x"].sum(dtype=torch.int64))
+        del b
+    for i, (got, want) in enumerate(zip(sums, host)):
+        assert got.item() == want["x"].size * i
 
 
 def test_kernel_takes_frames_at_an_odd_address(cuda):
