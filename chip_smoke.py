@@ -2,7 +2,7 @@
 """Drive the PyTorch port's main path once on one NVIDIA GPU, and check it.
 
     python3 chip_smoke.py [--k1-baseline PREPROCESS_CU] [--k3-baseline QCONV_CU]
-                          [--k3-table DIR]
+                          [--k3-table DIR] [--cli-tables DIR]
 
 Phases (every failure raises; the exit code is then non-zero):
 
@@ -91,6 +91,22 @@ Phases (every failure raises; the exit code is then non-zero):
     serial (twice) and prefetched runs give equal losses under
     ``cudnn.deterministic``.
 
+14. Phase ``cli``: the multi-scale plane's crop and resize (two batched f32
+    products, ``ops/resize.py``) at the train shape, card against CPU on
+    sampled windows, equal to K1's f32 crop at a full-size window, and timed;
+    rematerialization: one bf16 train step of ECO-Lite and of ECO-Full at
+    batch 8 from one state with no remat, ``"dots"`` and ``"nothing"`` under
+    ``cudnn.deterministic`` (losses and updated params equal), each with its
+    peak device memory and its step time (ECO-Lite's ``"dots"`` peak at least
+    a quarter below the plain step's); then the port's CLI in this process
+    (``tools.cli.main``): ``device-query``, ``train`` from a solver file over
+    the JPEG tree on the raw plane with the zoo's multi-scale default and
+    ``mem_param { optimize_train: true }`` (so remat ``"dots"``), ``test`` of
+    the snapshot (K1), ``time --bf16`` and ``time --backward`` (the ten
+    slowest layers and the totals; ``--cli-tables DIR`` writes the tables),
+    ``quantize`` and ``test`` of the int8 graph with every K3 call held to
+    its plain version.  Prints one ``{"cli": ...}`` line.
+
 Prints a ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it fails and
 prints no result.
@@ -102,10 +118,12 @@ import argparse
 import contextlib
 import ctypes
 import dataclasses
+import io
 import itertools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -126,9 +144,12 @@ from eco_tpu_torch.data import (
     prefetch_to_device,
 )
 from eco_tpu_torch.models import build_eco_lite, get_model
-from eco_tpu_torch.ops import _build, pool, poolfuse, preprocess, qconv
-from eco_tpu_torch.runtime import Program, get_impl
+from eco_tpu_torch.apps import serving
+from eco_tpu_torch.ops import _build, pool, poolfuse, preprocess, qconv, resize
+from eco_tpu_torch.runtime import Program, get_impl, memory
 from eco_tpu_torch.runtime.executor import Context
+from eco_tpu_torch.spec.graph import graph_to_json
+from eco_tpu_torch.tools import cli, memreport
 from eco_tpu_torch.train import SolverConfig, Trainer, init_train_state, make_train_step
 from eco_tpu_torch.utils.shapes import normalize_spatial_param
 
@@ -214,6 +235,33 @@ ONLINE_STREAMS, ONLINE_TICKS, ONLINE_FRAME_POOL = 64, 3, 48
 # E2E_ROUNDS interleaved rounds, and RACE_STEPS steps for the race check
 E2E_VIDEOS, E2E_FRAMES = 24, 24
 E2E_ROUNDS, E2E_BLOCK, RACE_STEPS, PUT_REPS = 3, 6, 3, 5
+# The cli phase.  The resize on the card against the CPU: the same f32 sums
+# of two one-hot-weighted terms, in other orders (FMA or not): ~1 ulp of 255
+RESIZE_CARD_VS_CPU_BOUND = 1e-4
+RESIZE_ITERS = 20
+# the card's published f32 rate outside the tensor cores (the resize pins
+# full f32 precision: no TF32)
+F32_OPS_PER_S = 67e12
+# remat: timed steps after the measured one; ECO-Lite's "dots" peak must be
+# at most this share of the plain step's
+REMAT_STEPS, REMAT_PEAK_SHARE = 3, 0.75
+REMAT_POLICIES = (None, "dots", "nothing")
+# the CLI's solver: examples/train_synthetic.py's, 4 iterations, a snapshot
+# at the end
+CLI_SOLVER = f"""
+base_lr: {SOLVER['base_lr']}
+lr_policy: "fixed"
+momentum: {SOLVER['momentum']}
+weight_decay: {SOLVER['weight_decay']}
+clip_gradients: {SOLVER['clip_gradients']}
+solver_type: NESTEROV
+max_iter: 4
+display: 1
+snapshot: 4
+snapshot_prefix: "{{prefix}}"
+random_seed: {SEED}
+"""
+CLI_TEST_ITERATIONS, CLI_CALIB_BATCHES, CLI_TIME_ITERS = 2, 2, 5
 
 
 def _card() -> str:
@@ -1566,6 +1614,252 @@ def train_e2e(dev, card: str) -> dict:
     return {"train_e2e": k1, "train_e2e_race": race_k1}
 
 
+def check_resize(dev, card: str) -> dict:
+    """The multi-scale plane's crop and resize at the train shape, f32 out:
+    per-video sampled windows (the scale ratios of 256 the pipeline picks),
+    card against CPU; a full-size window against K1's f32 crop, which it
+    must equal; and its time beside its bound."""
+    gen = torch.Generator().manual_seed(SEED + 8)
+    frames = torch.randint(0, 256, (BATCH, SEGMENTS, HEIGHT, WIDTH, 3), dtype=torch.uint8,
+                           generator=gen)
+    sizes = torch.tensor([256, 224, 192, 168])
+    crop_h = sizes[torch.randint(0, 4, (BATCH,), generator=gen)]
+    crop_w = sizes[torch.randint(0, 4, (BATCH,), generator=gen)]
+    aug = (torch.randint(0, 2**20, (BATCH,), generator=gen) % (HEIGHT - crop_h + 1),
+           torch.randint(0, 2**20, (BATCH,), generator=gen) % (WIDTH - crop_w + 1),
+           crop_h, crop_w, torch.randint(0, 2, (BATCH,), generator=gen).bool())
+    kw = dict(crop=CROP, mean=MEAN, out_dtype=torch.float32)
+    card_frames = frames.to(dev)
+    card_aug = [t.to(dev) for t in aug]
+    got = resize.preprocess_resize_on_device(card_frames, *card_aug, **kw)
+    want = resize.preprocess_resize_on_device(frames, *aug, **kw)
+    err = (got.cpu() - want).abs().max().item()
+    h_off, w_off = (torch.randint(0, size - CROP + 1, (BATCH,), generator=gen).to(dev)
+                    for size in (HEIGHT, WIDTH))
+    full = torch.full((BATCH,), CROP, device=dev)
+    exact = torch.equal(
+        resize.preprocess_resize_on_device(card_frames, h_off, w_off, full, full, card_aug[4],
+                                           **kw),
+        preprocess.preprocess_on_device(card_frames, h_off, w_off, card_aug[4], **kw))
+    call = lambda: resize.preprocess_resize_on_device(card_frames, *card_aug, **kw)
+    ms = (_ms_per_call(call, RESIZE_ITERS) + _ms_per_call(call, RESIZE_ITERS)) / 2
+    ops = (2 * BATCH * CROP * HEIGHT * SEGMENTS * WIDTH * 3
+           + 2 * BATCH * CROP * WIDTH * CROP * SEGMENTS * 3)
+    bound, by = _bound_ms(frames.numel() + got.numel() * 4, ops, F32_OPS_PER_S)
+    print(f"resize (ops/resize.py, two batched f32 products) {tuple(frames.shape)} -> {CROP}, "
+          f"windows h {crop_h.tolist()} w {crop_w.tolist()}: card vs CPU max |diff| {err:.3e} "
+          f"(bound {RESIZE_CARD_VS_CPU_BOUND}); at a full-size window equal to K1's f32 crop: "
+          f"{exact}; {ms:.4f} ms a call (CUDA events, {RESIZE_ITERS} calls a block, two "
+          f"blocks), bound {bound:.4f} ms ({by}: {ops / 1e9:.1f} GFLOP at 67 TFLOP/s f32), "
+          f"{bound / ms:.1%} of it; {card}")
+    if not (err <= RESIZE_CARD_VS_CPU_BOUND and exact):
+        raise AssertionError(f"resize: card vs CPU {err}, equal to K1 at a full window {exact}")
+    return {"max_abs_err": err, "ms": ms, "bound_ms": bound}
+
+
+@contextlib.contextmanager
+def _cudnn_flags(**flags):
+    """``torch.backends.cudnn`` flags set inside (a decorator too), and put
+    back after."""
+    old = {k: getattr(torch.backends.cudnn, k) for k in flags}
+    for k, v in flags.items():
+        setattr(torch.backends.cudnn, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(torch.backends.cudnn, k, v)
+
+
+@_cudnn_flags(deterministic=True, benchmark=False)
+def remat_phase(dev, card: str) -> dict:
+    """One bf16 train step of ECO-Lite and of ECO-Full at batch 8 through the
+    raw plane from one state, with each remat policy, under
+    ``cudnn.deterministic``: losses and updated params must be equal; peak
+    memory and step times printed.  Returns K1's launches and the figures."""
+    out = {"k1": 0}
+    for model in ("eco_lite_kinetics", "eco_full_kinetics"):
+        graph = get_model(model, num_segments=SEGMENTS, crop_size=CROP, with_loss=True,
+                          batch=BATCH)
+        prog = RawPreprocessProgram(
+            Program(graph, train=True, compute_dtype=torch.bfloat16, device=dev),
+            crop=CROP, mean=MEAN)
+        batch = _train_batch(SEED + 2)
+        ts = init_train_state(*prog.init(torch.Generator().manual_seed(SEED),
+                                         {k: v[0] for k, v in batch.items()}))
+        _reset_counts()
+        rows = memreport.policy_rows(prog, SolverConfig(**SOLVER), ts, batch,
+                                     REMAT_POLICIES, steps=REMAT_STEPS)
+        k1, k2, k3 = _counts()
+        del ts
+        plain = rows[0]
+        for row in rows:
+            same = torch.equal(row["loss"], plain["loss"]) and all(
+                torch.equal(v, plain["params"][ln][k])
+                for ln, lp in row["params"].items() for k, v in lp.items())
+            print(f"remat {model} bf16, batch {BATCH}, policy {row['policy']}: loss "
+                  f"{float(row['loss']):.6f}, loss and updated params equal to the plain "
+                  f"step's: {same}; peak memory {row['peak_bytes'] / 2**30:.3f} GiB "
+                  f"({row['peak_bytes'] / plain['peak_bytes']:.1%} of the plain step's), "
+                  f"{row['peak_above_start_bytes'] / 2**30:.3f} GiB above the state and "
+                  f"batch; step {row['step_ms']:.2f} ms (CUDA events over {REMAT_STEPS} "
+                  f"steps, cudnn.deterministic); {card}")
+            if not same:
+                raise AssertionError(f"remat {model} {row['policy']}: the step differs")
+        steps = len(rows) * (1 + REMAT_STEPS)
+        if (k1, k2, k3) != (steps, 0, 0):
+            raise AssertionError(f"remat {model}: K1, K2, K3 launched {(k1, k2, k3)} times "
+                                 f"in {steps} steps")
+        share = rows[1]["peak_bytes"] / plain["peak_bytes"]
+        if model == "eco_lite_kinetics" and not share <= REMAT_PEAK_SHARE:
+            raise AssertionError(f"remat: ECO-Lite's dots peak is {share:.1%} of the plain "
+                                 f"step's (at most {REMAT_PEAK_SHARE:.0%})")
+        out["k1"] += k1
+        out[model] = {r["policy"]: {"peak_gib": r["peak_bytes"] / 2**30,
+                                    "step_ms": r["step_ms"]} for r in rows}
+        del rows, plain
+    return out
+
+
+@contextlib.contextmanager
+def _captured(echo: bool = True):
+    """The block's standard output, kept, then printed after it if ``echo``
+    (and always if the block fails)."""
+    buf = io.StringIO()
+    failed = True
+    try:
+        with contextlib.redirect_stdout(buf):
+            yield buf
+        failed = False
+    finally:
+        if echo or failed:
+            print(buf.getvalue(), end="")
+
+
+def _slowest(rows, n=10):
+    key = (lambda r: r[2] + r[3]) if len(rows[0]) == 4 else (lambda r: r[2])
+    return [[r[0], r[1], *[round(x, 4) for x in r[2:]]]
+            for r in sorted(rows, key=key, reverse=True)[:n]]
+
+
+@_cudnn_flags(benchmark=False)  # a CLI user's default; earlier phases turned it on
+def cli_phase(card: str, tables=None) -> dict:
+    """The port's CLI in this process, as a user drives it: ``device-query``;
+    ``train`` of the zoo's ECO-Lite TRAIN graph (written as ``graph.json``
+    with ``mem_param { optimize_train: true }``) from a solver file on the
+    raw plane over a JPEG tree, the zoo's multi-scale default on; ``test``
+    of the snapshot (K1); ``time --bf16`` and ``time --backward``;
+    ``quantize`` and ``test`` of the int8 graph, every K3 call held to its
+    plain version.  Returns K1's and K3's launches."""
+    def run(*argv):
+        return cli.main([str(a) for a in argv])
+
+    import cv2
+
+    data = ["--batch", BATCH, "--segments", SEGMENTS]
+    with _captured() as out:
+        run("device-query")
+    if torch.cuda.get_device_name(0) not in out.getvalue():
+        raise AssertionError(f"device-query printed {out.getvalue()!r}")
+    with tempfile.TemporaryDirectory() as root:
+        lst = _frame_tree(root, cv2)
+        graph = build_eco_lite(NUM_CLASSES, SEGMENTS, crop_size=CROP, with_loss=True,
+                               batch=BATCH)
+        graph.options["mem_param"] = {"optimize_train": True}
+        net, solver = os.path.join(root, "graph.json"), os.path.join(root, "solver.prototxt")
+        with open(net, "w") as f:
+            f.write(graph_to_json(graph))
+        with open(solver, "w") as f:
+            f.write(CLI_SOLVER.format(prefix=os.path.join(root, "eco")))
+
+        policies, scaled = [], []
+        run_with_remat, clips = memory.run_with_remat, serving.RawPreprocessProgram._clips
+
+        def remat_seen(steps, blobs, keep, policy, run_):
+            policies.append(policy)
+            return run_with_remat(steps, blobs, keep, policy, run_)
+
+        def clips_seen(self, inputs):
+            if self.train:
+                scaled.append("crop_h" in inputs)
+            return clips(self, inputs)
+
+        memory.run_with_remat, serving.RawPreprocessProgram._clips = remat_seen, clips_seen
+        _reset_counts()
+        t0 = time.perf_counter()
+        try:
+            with _captured() as out:
+                ts = run("train", "--solver", solver, "--net", net, "--list", lst, *data,
+                         "--pipeline", "raw")
+        finally:
+            memory.run_with_remat, serving.RawPreprocessProgram._clips = run_with_remat, clips
+        train_s = time.perf_counter() - t0
+        k1_train = _counts()[0]
+        log = out.getvalue()
+        losses = [float(v) for v in re.findall(r"Iteration \d+, loss = (\S+) ", log)]
+        step_s = [float(v) for v in re.findall(r", ([0-9.]+)s\)", log)]
+        snap = os.path.join(root, "eco_iter_4.model.npz")
+        print(f"cli train: {ts.it} iterations of ECO-Lite f32, batch {BATCH} x {SEGMENTS}, raw "
+              f"plane, multi-scale windows in {sum(scaled)} of {len(scaled)} batches, remat "
+              f"{sorted(set(map(str, policies)))} in {len(policies)} steps; losses {losses}; "
+              f"the Trainer's display intervals (host's clock) {step_s} s; {train_s:.1f} s with "
+              f"set-up and the snapshot; K1 launches {k1_train}; {card}")
+        if not (ts.it == 4 and len(losses) == 4 and all(map(math.isfinite, losses))
+                and policies == ["dots"] * 4 and scaled == [True] * 4 and k1_train == 0
+                and os.path.exists(snap)):
+            raise AssertionError("cli train: not the run asked for")
+
+        _reset_counts()
+        means = run("test", "--net", net, "--weights", snap, "--list", lst, *data,
+                    "--pipeline", "raw", "--iterations", CLI_TEST_ITERATIONS)
+        k1_test, k2_test, k3_test = _counts()
+        if (k1_test, k2_test, k3_test) != (CLI_TEST_ITERATIONS, 0, 0) or not all(
+                map(math.isfinite, means.values())):
+            raise AssertionError(f"cli test: {means}, K1, K2, K3 "
+                                 f"{(k1_test, k2_test, k3_test)}")
+
+        times = {}
+        for name, flags in (("bf16", ["--bf16"]), ("backward", ["--backward"])):
+            with _captured(echo=False) as out:
+                rows = run("time", "--zoo", "eco_lite_kinetics", *data, "--iters",
+                           CLI_TIME_ITERS, *flags)
+            if tables:
+                os.makedirs(tables, exist_ok=True)
+                with open(os.path.join(tables, f"cli_time_{name}.txt"), "w") as f:
+                    f.write(f"{card}\n{out.getvalue()}")
+            totals = [round(sum(r[i] for r in rows if math.isfinite(r[i])), 3)
+                      for i in range(2, len(rows[0]))]
+            times[name] = {"totals_ms": totals, "slowest": _slowest(rows)}
+            print(f"cli time --{name}: {len(rows)} layers, totals (fwd[, bwd]) {totals} ms, "
+                  f"every row above a floor; ten slowest {times[name]['slowest']}; {card}")
+
+        int8 = os.path.join(root, "int8")
+        with _captured() as out:
+            run("quantize", "--net", net, "--weights", snap, "--list", lst, *data,
+                "--calib-batches", CLI_CALIB_BATCHES, "-o", int8)
+        qgraph = json.load(open(int8 + ".graph.json"))
+        n_q = sum(l["type"] in ("qconvolution", "qinnerproduct") for l in qgraph["layers"])
+        _reset_counts()
+        with _k3_held() as checked:
+            means8 = run("test", "--net", int8 + ".graph.json", "--weights", int8 + ".npz",
+                         "--list", lst, *data, "--pipeline", "raw", "--iterations",
+                         CLI_TEST_ITERATIONS)
+        k1_8, k2_8, k3_8 = _counts()
+        print(f"cli quantize + int8 test: {n_q} int8 layers; {CLI_TEST_ITERATIONS} batches, "
+              f"{means8}; K1 launches {k1_8}, K3 launches {k3_8}, each equal to its plain "
+              f"version ({len(checked)} held); float test {means}")
+        if not (n_q and (k1_8, k2_8, k3_8) == (CLI_TEST_ITERATIONS, 0, n_q * CLI_TEST_ITERATIONS)
+                and len(checked) == k3_8 and all(map(math.isfinite, means8.values()))):
+            raise AssertionError(f"cli int8 test: K1, K2, K3 {(k1_8, k2_8, k3_8)}, "
+                                 f"{len(checked)} held, {n_q} int8 layers")
+    print(json.dumps({"cli": {"train_losses": losses, "remat": "dots",
+                              "display_intervals_s": step_s, "train_s": train_s,
+                              "test": means, "int8_test": means8, "int8_layers": n_q,
+                              "time": times, "card": card}}))
+    return {"k1": {"cli_test": k1_test, "cli_test_int8": k1_8},
+            "k3": {"cli_test_int8": k3_8}}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--k3-baseline", metavar="QCONV_CU",
@@ -1576,6 +1870,8 @@ def main() -> None:
     parser.add_argument("--k1-baseline", metavar="PREPROCESS_CU",
                         help="an earlier preprocess.cu (the previous C interface, separate "
                              "offset arrays) to time in turns with K1")
+    parser.add_argument("--cli-tables", metavar="DIR",
+                        help="write the cli phase's per-layer time tables to DIR")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this check runs only on the GPU")
@@ -1625,16 +1921,19 @@ def main() -> None:
                                                         card, baseline, timed, args.k3_table)
     del server
     k1_e2e = train_e2e(dev, card)
+    resize_checked = check_resize(dev, card)
+    remat = remat_phase(dev, card)
+    cli_counts = cli_phase(card, args.cli_tables)
     for name in ("jax", "eco_tpu"):
         if name in sys.modules:
             raise AssertionError(f"the port imported {name}")
     k1_paths = {"serve": k1_serve, "train": k1_train, "test": len(test_batches),
                 "serve_k2": k1_k2serve, "serve_full": k1_full, "serve_full_k2": k1_full_k2,
                 "serve_int8_lite": k1_int8_lite, "serve_int8_full": k1_int8_full,
-                **online_counts["k1"], **k1_e2e}
+                **online_counts["k1"], **k1_e2e, "remat": remat["k1"], **cli_counts["k1"]}
     k2_paths = {"test": k2_test, "serve_k2": k2_serve, "serve_full_k2": k2_full}
     k3_paths = {"serve_int8_lite": k3_int8_lite, "serve_int8_full": k3_int8_full,
-                **online_counts["k3"]}
+                **online_counts["k3"], **cli_counts["k3"]}
     records = [
         {
             "name": "crop_normalize",

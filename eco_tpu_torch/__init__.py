@@ -14,15 +14,19 @@ between the packages as ``graph_to_json`` text.
 
 - ``eco_tpu_torch.ops``      -- channels-last op library (conv, Caffe pools,
                                 BN math inference and train, elementwise,
-                                dropout, fc, softmax, loss and accuracy) and
+                                dropout, stochastic pool and sum, fc,
+                                softmax, loss and accuracy, the multi-scale
+                                crop and resize) and
                                 the CUDA kernels (``csrc/``): uint8
                                 crop/normalize, the fused 3x3/s2 max pool
                                 and the int8 convolution (``ops/quant.py``).
 - ``eco_tpu_torch.runtime``  -- GraphSpec -> ``Program``, TEST or TRAIN, on
-                                the card unless ``device=`` says otherwise.
+                                the card unless ``device=`` says otherwise;
+                                rematerialization; the per-layer profiler.
 - ``eco_tpu_torch.convert``  -- weight bridge to and from ``eco_tpu``'s
-                                layout, sibling-1x1 merge, BN folding and
-                                int8 post-training quantization.
+                                layout, caffemodel import and export,
+                                sibling-1x1 merge, BN folding and int8
+                                post-training quantization.
 - ``eco_tpu_torch.apps``     -- ``UInt8Server``: uint8 frames in, class
                                 probabilities out, float or int8 graphs;
                                 ``RawPreprocessProgram``:
@@ -36,6 +40,9 @@ between the packages as ``graph_to_json`` text.
 - ``eco_tpu_torch.train``    -- Caffe-exact solver step, lr policies,
                                 checkpoints in the reference's files, and
                                 the ``Trainer``.
+- ``eco_tpu_torch.tools``    -- the ``eco`` CLI (``python -m
+                                eco_tpu_torch.tools.cli``), the remat memory
+                                report, dataset, log and graph tools.
 
 The package imports ``torch`` and never ``jax`` or ``eco_tpu``.
 """

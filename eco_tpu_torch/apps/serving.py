@@ -16,6 +16,7 @@ import torch
 
 from eco_tpu_torch.convert.quantize import int8_input_rewrite
 from eco_tpu_torch.ops.preprocess import preprocess_on_device
+from eco_tpu_torch.ops.resize import preprocess_resize_on_device
 from eco_tpu_torch.runtime.executor import Program
 
 
@@ -92,9 +93,10 @@ class RawPreprocessProgram:
     ``Trainer``: it delegates graph, outputs and ``total_loss``, and its
     ``apply``/``init`` take ``{"data": uint8 (N, S, H, W, 3), "h_off",
     "w_off", "mirror", "label", ...}``.  Clips come out in the program's
-    ``compute_dtype`` (f32 when it is None).  The multi-scale branch
-    (``crop_h``/``crop_w`` in the batch: crop and bilinear resize) is not
-    ported yet and raises.
+    ``compute_dtype`` (f32 when it is None).  A multi-scale batch (``crop_h``
+    and ``crop_w`` in it, sampled per video) takes the crop and bilinear
+    resize of ``ops/resize.py`` instead of the kernel.  The clips are made
+    before the wrapped program runs, so ``remat`` never recomputes them.
     """
 
     _AUG_KEYS = ("h_off", "w_off", "mirror", "crop_h", "crop_w")
@@ -114,16 +116,19 @@ class RawPreprocessProgram:
         self.total_loss = program.total_loss
 
     def _clips(self, inputs):
-        if "crop_h" in inputs or "crop_w" in inputs:
-            raise NotImplementedError(
-                "the multi-scale raw plane (crop + bilinear resize, ops/resize.py) "
-                "is not ported yet")
+        dtype = self.compute_dtype or torch.float32
         # pinned host frames then reach the device without a blocking copy;
         # the wrapper ships host offsets in one small copy of its own
         frames = torch.as_tensor(inputs["data"]).to(self.device, non_blocking=True)
+        if "crop_h" in inputs:
+            # multi-scale: the sampled (crop_h, crop_w) window, cropped and
+            # resized by two batched products (ops/resize.py)
+            return preprocess_resize_on_device(
+                frames, inputs["h_off"], inputs["w_off"], inputs["crop_h"], inputs["crop_w"],
+                inputs["mirror"], crop=self.crop, mean=self.mean, out_dtype=dtype)
         return preprocess_on_device(
             frames, inputs["h_off"], inputs["w_off"], inputs["mirror"], crop=self.crop,
-            mean=self.mean, out_dtype=self.compute_dtype or torch.float32)
+            mean=self.mean, out_dtype=dtype)
 
     def _inner_inputs(self, inputs):
         return {k: v for k, v in inputs.items() if k != "data" and k not in self._AUG_KEYS}
@@ -134,7 +139,8 @@ class RawPreprocessProgram:
         inner["data"] = (n, s, self.crop, self.crop, 3)
         return self.inner.init(generator, inner)
 
-    def apply(self, params, state, inputs, *, generator=None, capture=None):
+    def apply(self, params, state, inputs, *, generator=None, capture=None, remat=None):
         inner = self._inner_inputs(inputs)
         inner["data"] = self._clips(inputs)
-        return self.inner.apply(params, state, inner, generator=generator, capture=capture)
+        return self.inner.apply(params, state, inner, generator=generator, capture=capture,
+                                remat=remat)

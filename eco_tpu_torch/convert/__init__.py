@@ -1,6 +1,6 @@
 from eco_tpu_torch.convert.caffemodel import load_blobproto, load_caffemodel
 from eco_tpu_torch.convert.bridge import params_from_jax, params_to_jax
-from eco_tpu_torch.convert.load import fold_bn
+from eco_tpu_torch.convert.load import convert_conv_weight, fold_bn, import_caffe_weights
 from eco_tpu_torch.convert.quantize import (
     calibrate,
     chain_int8,

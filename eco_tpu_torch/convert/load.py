@@ -1,18 +1,124 @@
-"""BN folding for inference (twin of ``eco_tpu/convert/load.py:fold_bn``).
+"""Weight import from caffemodels, and BN folding for inference (twin of
+``eco_tpu/convert/load.py``).
 
-Ported rather than borrowed: the reference's version computes with
+Ported rather than borrowed: the reference's versions compute with
 ``jax.numpy``, which the port may not import.  The decisions are the
-reference's; only the weight layout differs (output channels on dim 0).
+reference's; only the weight layout differs.  This package keeps Caffe's
+own axis order, conv ``(C_out, C_in/g, *k)`` and fc ``(D_out, D_in)``, so
+a caffemodel blob loads with a reshape at most, where the reference
+transposes it.
+
+- :func:`import_caffe_weights`: name-based transfer of a caffemodel's blobs
+  into copies of a Program's (params, state) (CopyTrainedLayersFrom,
+  net.cpp:852-876); BN takes 4 blobs (1,C,1,1): slope, bias, running mean,
+  running var (``inv_std`` checkpoints are converted: var = istd^-2 - eps,
+  bn_convert_style.py:13-33).
+- :func:`fold_bn`: absorbs inference-mode BN into the preceding
+  Convolution / InnerProduct (gen_bn_inference.py:23-80), or makes it a
+  per-channel Scale layer where it cannot fold.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Sequence
 
+import numpy as np
 import torch
 
+from eco_tpu_torch.convert.caffemodel import load_caffemodel
 from eco_tpu_torch.spec.graph import GraphSpec, LayerSpec
 from eco_tpu_torch.ops.norm import DEFAULT_EPS
+
+
+def convert_conv_weight(w: np.ndarray, *, transposed: bool = False) -> np.ndarray:
+    """A Caffe Convolution blob (out, in/g, *k), or a Deconvolution blob
+    (in, out/g, *k), in this package's layout: the same axis order, as
+    PyTorch's conv and transposed-conv weights keep it, made a contiguous
+    f32 array.  ``transposed`` only documents which of the two it is."""
+    del transposed
+    return np.ascontiguousarray(w, np.float32)
+
+
+def import_caffe_weights(
+    graph: GraphSpec,
+    params: Mapping,
+    state: Mapping,
+    caffe_paths: str | Sequence[str],
+    *,
+    bn_style: str = "var",
+    eps: float = DEFAULT_EPS,
+    strict: bool = False,
+):
+    """Load one or more .caffemodel files (comma-separated like the
+    reference's --weights) into copies of (params, state); each blob takes
+    the dtype and device of the tensor it replaces.
+
+    Returns (params, state, report), where report lists loaded and skipped
+    layer names.
+    """
+    if isinstance(caffe_paths, str):
+        caffe_paths = [p for p in caffe_paths.split(",") if p]
+    new_params = {k: dict(v) for k, v in params.items()}
+    new_state = {k: dict(v) for k, v in state.items()}
+    loaded, skipped = [], []
+    for path in caffe_paths:
+        for lname, entry in load_caffemodel(path).items():
+            blobs = entry["blobs"]
+            if lname not in new_params and lname not in new_state:
+                skipped.append(lname)
+                continue
+            try:
+                spec_type = graph.layer(lname).type
+            except KeyError:
+                spec_type = entry["type"].lower()
+            if spec_type in ("convolution", "deconvolution"):
+                w = convert_conv_weight(blobs[0], transposed=spec_type == "deconvolution")
+                _assign(new_params, lname, "w", w, strict)
+                if len(blobs) > 1:
+                    _assign(new_params, lname, "b", blobs[1].reshape(-1), strict)
+            elif spec_type == "innerproduct":
+                _assign(new_params, lname, "w", blobs[0], strict)
+                if len(blobs) > 1:
+                    _assign(new_params, lname, "b", blobs[1].reshape(-1), strict)
+            elif spec_type == "bn":
+                gamma, beta, mean, var = (b.reshape(-1) for b in blobs[:4])
+                if bn_style == "inv_std":
+                    var = np.power(var, -2.0) - eps
+                _assign(new_params, lname, "gamma", gamma, strict)
+                _assign(new_params, lname, "beta", beta, strict)
+                _assign(new_state, lname, "mean", mean, strict)
+                _assign(new_state, lname, "var", var, strict)
+            elif spec_type == "scale":
+                _assign(new_params, lname, "scale", blobs[0].reshape(-1), strict)
+                if len(blobs) > 1:
+                    _assign(new_params, lname, "shift", blobs[1].reshape(-1), strict)
+            elif spec_type == "batchnorm":
+                # new-style BatchNorm: mean, var, scale_factor (the stats are
+                # divided by scale_factor on use, batch_norm_layer.cpp)
+                factor = float(blobs[2].reshape(-1)[0]) if len(blobs) > 2 else 1.0
+                factor = 1.0 / factor if factor != 0 else 0.0
+                _assign(new_state, lname, "mean", blobs[0].reshape(-1) * factor, strict)
+                _assign(new_state, lname, "var", blobs[1].reshape(-1) * factor, strict)
+            else:
+                skipped.append(lname)
+                continue
+            loaded.append(lname)
+    if strict and skipped:
+        raise ValueError(f"unmatched caffemodel layers: {skipped}")
+    return new_params, new_state, {"loaded": loaded, "skipped": skipped}
+
+
+def _assign(tree, lname, pname, value, strict):
+    if lname not in tree or pname not in tree[lname]:
+        if strict:
+            raise ValueError(f"model has no {lname}/{pname}")
+        return
+    cur = tree[lname][pname]
+    if tuple(cur.shape) != tuple(value.shape):
+        raise ValueError(
+            f"{lname}/{pname}: caffemodel shape {value.shape} != model {tuple(cur.shape)}"
+        )
+    tree[lname][pname] = torch.from_numpy(np.array(value, order="C")).to(cur.device, cur.dtype)
 
 
 def fold_bn(graph: GraphSpec, params: Mapping, state: Mapping,

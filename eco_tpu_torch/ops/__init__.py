@@ -11,7 +11,7 @@ from eco_tpu_torch.ops.layout import (
 from eco_tpu_torch.ops.linear import inner_product
 from eco_tpu_torch.ops.loss import softmax, softmax_cross_entropy, topk_accuracy
 from eco_tpu_torch.ops.norm import bn_inference, bn_train, fold_scale_shift, scale_shift
-from eco_tpu_torch.ops.pool import global_avg_pool, pool_nd
+from eco_tpu_torch.ops.pool import global_avg_pool, pool_nd, stochastic_pool
 from eco_tpu_torch.ops.poolfuse import fused_maxpool_3x3s2
 from eco_tpu_torch.ops.preprocess import preprocess_on_device
 from eco_tpu_torch.ops.quant import (

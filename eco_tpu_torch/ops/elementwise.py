@@ -37,8 +37,15 @@ def eltwise(
     inputs: Sequence[torch.Tensor],
     op: str = "sum",
     coeffs: Sequence[float] | None = None,
+    *,
+    train: bool = False,
+    generator: torch.Generator | None = None,
 ) -> torch.Tensor:
-    """Eltwise PROD / SUM (with coefficients) / MAX (eltwise_layer.cpp)."""
+    """Eltwise PROD / SUM (with coefficients) / MAX (eltwise_layer.cpp), and
+    the fork's STOCHASTIC_SUM (eltwise_layer.cpp:101-118): at TRAIN each
+    bottom is included with probability ``coeff[i]`` (default 1), one draw
+    per bottom from ``generator``; at TEST it is the coefficient-weighted
+    sum.  The draws do not reproduce ``jax.random.uniform``'s bits."""
     op = op.lower()
     if op == "prod":
         out = inputs[0]
@@ -50,15 +57,24 @@ def eltwise(
         for t in inputs[1:]:
             out = torch.maximum(out, t)
         return out
-    if op == "sum":
-        if coeffs is None:
-            coeffs = (1.0,) * len(inputs)
+    if op not in ("sum", "stochastic_sum"):
+        raise ValueError(f"unknown eltwise op {op!r}")
+    if coeffs is None:
+        coeffs = (1.0,) * len(inputs)
+    if op == "stochastic_sum" and train:
+        if generator is None:
+            raise ValueError("stochastic_sum(train=True) needs a generator")
+        u = torch.rand(len(inputs), generator=generator, device=generator.device)
         out = None
-        for c, t in zip(coeffs, inputs):
-            term = t if c == 1.0 else c * t
+        for i, (c, t) in enumerate(zip(coeffs, inputs)):
+            term = (u[i] <= c).to(t.device, t.dtype) * t
             out = term if out is None else out + term
         return out
-    raise ValueError(f"unknown eltwise op {op!r}")
+    out = None
+    for c, t in zip(coeffs, inputs):
+        term = t if c == 1.0 else c * t
+        out = term if out is None else out + term
+    return out
 
 
 def concat_channels(inputs: Sequence[torch.Tensor]) -> torch.Tensor:

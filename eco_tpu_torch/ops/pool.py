@@ -114,6 +114,43 @@ def pool_nd(
     raise ValueError(f"unknown pool mode {mode!r}")
 
 
+def stochastic_pool(x: torch.Tensor, kernel, stride=1, *, train: bool,
+                    generator: torch.Generator | None = None) -> torch.Tensor:
+    """STOCHASTIC pooling (pooling_layer.cu StoPoolForwardTrain/Test) on a
+    channels-last tensor (twin of ``eco_tpu/ops/pool.py:stochastic_pool``).
+
+    Windows start at ``i * stride`` with no padding; the last ones are
+    clipped at the border, their missing cells zero, which neither mode
+    counts.  TRAIN picks one activation a window with probability
+    proportional to its value, by the Gumbel-max over ``log(x)`` as the
+    reference does, with noise from ``generator`` (its bits are not
+    ``jax.random.gumbel``'s); assumes non-negative inputs (post-ReLU).
+    TEST is the probability-weighted mean ``sum(x^2) / (FLT_MIN + sum(x))``.
+    """
+    num_spatial = x.ndim - 2
+    kernel = normalize_spatial_param(kernel, num_spatial)
+    stride = normalize_spatial_param(stride, num_spatial, default=1)
+    spatial = x.shape[1:-1]
+    outs = [caffe_pool_out_dim(size, k, s, 0)[0]
+            for size, k, s in zip(spatial, kernel, stride)]
+    need = [max(0, (o - 1) * s + k - size)
+            for o, s, k, size in zip(outs, stride, kernel, spatial)]
+    xp = _pad_spatial(x, [(0, n) for n in need], 0.0)
+    # (N, *out, C, K), kernel offsets in row-major (Caffe im2col) order
+    windows = _windows(xp, kernel, stride).flatten(-num_spatial)
+    wf = windows.float()
+    if not train:
+        num = wf.square().sum(dim=-1)
+        den = wf.sum(dim=-1) + float(np.finfo(np.float32).tiny)
+        return (num / den).to(x.dtype)
+    if generator is None:
+        raise ValueError("stochastic_pool(train=True) needs a generator")
+    u = torch.rand(wf.shape, generator=generator, device=generator.device).to(wf.device)
+    gumbel = -torch.log(-torch.log(u.clamp_min(float(np.finfo(np.float32).tiny))))
+    pick = (torch.log(wf.clamp_min(0.0)) + gumbel).argmax(dim=-1, keepdim=True)
+    return windows.gather(-1, pick).squeeze(-1).to(x.dtype)
+
+
 def global_avg_pool(x: torch.Tensor, keepdims: bool = False) -> torch.Tensor:
     """Global spatial mean taken in f32 -- the (4,7,7) head pool."""
     dims = tuple(range(1, x.ndim - 1))

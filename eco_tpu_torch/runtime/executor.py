@@ -24,6 +24,7 @@ the same shapes, conv weights in ``ops.qconv.kernel_layout`` memory order.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import zlib
 from dataclasses import dataclass, field
@@ -36,6 +37,7 @@ from eco_tpu_torch.spec.graph import TEST, TRAIN, GraphSpec, LayerSpec
 from eco_tpu_torch.utils.shapes import normalize_spatial_param
 from eco_tpu_torch import ops
 from eco_tpu_torch.ops.qconv import kernel_layout
+from eco_tpu_torch.runtime import memory
 from eco_tpu_torch.runtime.init import fill
 
 # Layer types whose tops are host-provided (the data boundary).
@@ -276,9 +278,19 @@ class _Pooling(LayerImpl):
         p = spec.opt("pad", 0)
         if spec.opt("pad_h") is not None:
             p = (int(spec.opt("pad_h")), int(spec.opt("pad_w")))
+        x = _dequant_in_scale(spec, inputs[0], ctx)
+        mode = str(spec.opt("pool", "max")).lower()
+        if mode == "stochastic":
+            # pooling_layer.cu StoPoolForwardTrain/Test; the reference GPU
+            # kernels ignore pad, so reject it rather than silently shift
+            if any(normalize_spatial_param(p, x.ndim - 2, default=0)):
+                raise ValueError("STOCHASTIC pooling does not support pad")
+            return [ops.stochastic_pool(
+                x, k, s, train=ctx.train,
+                generator=ctx.layer_generator(spec.name, x.device) if ctx.train else None,
+            )]
         return [ops.pool_nd(
-            _dequant_in_scale(spec, inputs[0], ctx), kernel=k, stride=s, pad=p,
-            mode=str(spec.opt("pool", "max")),
+            x, kernel=k, stride=s, pad=p, mode=mode,
             global_pooling=bool(spec.opt("global_pooling", False)),
         )]
 
@@ -294,8 +306,12 @@ class _Dropout(LayerImpl):
 
 class _Eltwise(LayerImpl):
     def apply(self, spec, params, state, inputs, ctx):
-        return [ops.eltwise(_dequant_in_scales(spec, inputs, ctx),
-                            spec.opt("operation", "sum"), spec.opt("coeffs"))]
+        op = str(spec.opt("operation", "sum"))
+        draws = ctx.train and op.lower() == "stochastic_sum"
+        return [ops.eltwise(
+            _dequant_in_scales(spec, inputs, ctx), op, spec.opt("coeffs"), train=ctx.train,
+            generator=ctx.layer_generator(spec.name, inputs[0].device) if draws else None,
+        )]
 
 
 class _Concat(LayerImpl):
@@ -465,8 +481,15 @@ class Program(nn.Module):
             l for l in self.graph.layers if l.type.lower() not in DATA_LAYER_TYPES
         ]
         self._impls = [get_impl(l.type) for l in self.exec_layers]
-        if any(ps.name for l in self.exec_layers for ps in l.params):
-            raise NotImplementedError("cross-layer param sharing is not ported yet")
+        # Cross-layer param sharing (LayerParameter.param name -> shared blob,
+        # net.cpp param ownership): {layer: {param_index: shared_name}}.  The
+        # first layer in execution order naming a blob owns it; later layers
+        # alias the owner's tensor and have no entry of their own in params.
+        self._shared_specs = {
+            l.name: {i: ps.name for i, ps in enumerate(l.params) if ps.name}
+            for l in self.exec_layers
+            if any(ps.name for ps in l.params)
+        }
         self.input_names = list(self.graph.inputs) + [
             t for l in data_layers for t in l.tops
         ]
@@ -500,15 +523,29 @@ class Program(nn.Module):
         params: dict = {}
         state: dict = {}
         ctx = Context(train=False, compute_dtype=self.compute_dtype)
+        shared_owner: dict[str, torch.Tensor] = {}
         for layer, impl in zip(self.exec_layers, self._impls):
             ins = [blobs[b] for b in layer.bottoms]
             in_shapes = [tuple(x.shape) for x in ins]
-            lp = {}
-            for name, (shape, filler, *dtype) in impl.param_specs(layer, in_shapes).items():
+            snames = self._shared_specs.get(layer.name, {})
+            lp, aliased = {}, {}
+            for i, (name, (shape, filler, *dtype)) in enumerate(
+                    impl.param_specs(layer, in_shapes).items()):
+                sname = snames.get(i)
+                if sname in shared_owner:
+                    owner = shared_owner[sname]
+                    if tuple(owner.shape) != tuple(shape):
+                        raise ValueError(
+                            f"layer {layer.name!r} shares param {sname!r} with shape "
+                            f"{tuple(shape)}, owner has {tuple(owner.shape)}")
+                    aliased[name] = owner
+                    continue
                 dtype = dtype[0] if dtype else torch.float32
                 lp[name] = fill(generator, shape, dtype, filler).to(self.device)
                 if dtype == torch.int8 and len(shape) > 2:
                     lp[name] = kernel_layout(lp[name])  # K3's int8 conv weights
+                if sname is not None:
+                    shared_owner[sname] = lp[name]
             ls = {
                 name: torch.full(shape, value, dtype=torch.float32, device=self.device)
                 for name, (shape, value) in impl.state_specs(layer, in_shapes).items()
@@ -519,7 +556,7 @@ class Program(nn.Module):
                 state[layer.name] = ls
             outs = impl.apply(
                 layer,
-                {k: v.to("meta") for k, v in lp.items()},
+                {k: v.to("meta") for k, v in {**lp, **aliased}.items()},
                 {k: v.to("meta") for k, v in ls.items()},
                 ins, ctx,
             )
@@ -529,15 +566,18 @@ class Program(nn.Module):
 
     def apply(self, params: Mapping, state: Mapping, inputs: Mapping[str, Any],
               *, generator: Optional[torch.Generator] = None,
-              capture: Optional[Sequence[str]] = None):
+              capture: Optional[Sequence[str]] = None, remat: Optional[str] = None):
         """Run the graph.  Returns (outputs, new_state): ``outputs`` maps
         every dangling top and every ``capture``d blob to its value;
         ``new_state`` is ``state`` with the BN statistics that a train-mode
         run updated replaced.
 
-        ``generator`` draws the step's random seed (train-mode dropout);
-        each layer then gets its own generator on the tensor's device.  A
-        CPU generator costs no device synchronisation.
+        ``generator`` draws the step's random seed (train-mode dropout and
+        stochastic layers); each layer then gets its own generator on the
+        tensor's device.  A CPU generator costs no device synchronisation.
+        ``remat`` runs the layers under a rematerialization policy of
+        ``runtime/memory.py`` (the values are the same; the backward pass
+        recomputes what the policy does not keep).
         """
         seed = None
         if generator is not None:
@@ -556,17 +596,48 @@ class Program(nn.Module):
                     f"{declared} (non-batch dims must agree)"
                 )
             blobs[k] = self.cast_input(v)
-        for layer, impl in zip(self.exec_layers, self._impls):
-            outs = impl.apply(
-                layer, params.get(layer.name, {}), state.get(layer.name, {}),
-                [blobs[b] for b in layer.bottoms], ctx,
-            )
-            for t, o in zip(layer.tops, outs):
-                blobs[t] = o
         wanted = list(self.output_names) + [
             c for c in (capture or ()) if c not in self.output_names
         ]
+        shared: dict[str, torch.Tensor] = {}  # shared name -> the owner's tensor
+
+        def run(steps, blobs, first=True):
+            # a recompute (first=False) writes its BN statistics elsewhere
+            c = ctx if first else dataclasses.replace(ctx, new_state={})
+            for layer, impl in steps:
+                ins = [blobs[b] for b in layer.bottoms]
+                lp = self._layer_params(layer, impl, params, ins, shared)
+                outs = impl.apply(layer, lp, state.get(layer.name, {}), ins, c)
+                blobs.update(zip(layer.tops, outs))
+
+        steps = list(zip(self.exec_layers, self._impls))
+        if remat is None:
+            run(steps, blobs)
+        else:
+            memory.run_with_remat(steps, blobs, wanted, remat, run)
         return {k: blobs[k] for k in wanted}, {**state, **ctx.new_state}
+
+    def _layer_params(self, layer, impl, params, ins, shared):
+        """The layer's params, with each shared one it does not own aliased
+        to its owner's tensor, so autograd sums the gradients onto the one
+        owned leaf."""
+        lp = params.get(layer.name, {})
+        snames = self._shared_specs.get(layer.name)
+        if not snames:
+            return lp
+        lp = dict(lp)
+        for i, pname in enumerate(impl.param_specs(layer, [tuple(x.shape) for x in ins])):
+            sname = snames.get(i)
+            if sname is None:
+                continue
+            if pname in lp:
+                shared.setdefault(sname, lp[pname])
+            elif sname in shared:
+                lp[pname] = shared[sname]
+            else:
+                raise ValueError(f"layer {layer.name!r} shares param {sname!r} but no owner "
+                                 "layer provided it")
+        return lp
 
     def forward(self, params, state, inputs, *, generator=None, capture=None):
         return self.apply(params, state, inputs, generator=generator, capture=capture)

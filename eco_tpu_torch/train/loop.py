@@ -6,8 +6,9 @@ Twin of ``eco_tpu/train/loop.py``.  Mirrored: ``iter_size`` micro-batching
 solver.cpp:230-239), the display interval with lr reporting, periodic test
 passes averaging the metric tops (solver.cpp:450-518), the snapshot interval
 and final snapshot, resume from a solverstate, and the non-finite-loss
-guard.  The data-parallel mesh, tensor parallelism and rematerialization
-are not ported yet: asking for them raises.
+guard, and rematerialization from the graph's ``mem_param``.  The
+data-parallel mesh and tensor parallelism are not ported yet: asking for
+them raises.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import Callable, Iterable, Iterator, Mapping, Optional
 import numpy as np
 import torch
 
+from eco_tpu_torch.runtime.memory import remat_policy_from_graph
 from eco_tpu_torch.train.checkpoint import load_model, restore, save_model, snapshot
 from eco_tpu_torch.train.solver import (
     SolverConfig,
@@ -64,15 +66,6 @@ def solver_config_from_prototxt(text: str) -> SolverConfig:
     )
 
 
-def _remat_policy_from_graph(graph) -> Optional[str]:
-    """mem_param mapping of ``eco_tpu/runtime/memory.py``: optimize_train ->
-    'dots', absent -> None."""
-    mp = getattr(graph, "options", {}).get("mem_param")
-    if mp and mp.get("optimize_train"):
-        return "dots"
-    return None
-
-
 def _rank() -> int:
     dist = torch.distributed
     return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
@@ -107,7 +100,7 @@ class Trainer:
         self.process_index = process_index
         if remat == "auto":
             # mem_param { optimize_train: true } in the graph -> remat
-            remat = _remat_policy_from_graph(train_program.graph)
+            remat = remat_policy_from_graph(train_program.graph)
         if mesh is not None:
             raise NotImplementedError("data/tensor-parallel training is not ported yet")
         self.remat = remat

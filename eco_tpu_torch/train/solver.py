@@ -32,6 +32,7 @@ from typing import Any, Mapping, Optional
 
 import torch
 
+from eco_tpu_torch.runtime.memory import apply_with_remat
 from eco_tpu_torch.spec.graph import GraphSpec, ParamSpec
 from eco_tpu_torch.train.lr_policies import learning_rate
 
@@ -106,10 +107,11 @@ def make_train_step(program, cfg: SolverConfig, *, remat: Optional[str] = None):
     ``cfg.iter_size`` (shape [1, ...] without accumulation).  ``generator``
     seeds the step's randomness (dropout); a CPU generator costs no device
     synchronisation.  Metrics are ``loss`` (the mean over micro-batches),
-    ``lr`` and ``grad_norm`` (0 without clipping), as tensors.
+    ``lr`` and ``grad_norm`` (0 without clipping), as tensors.  ``remat``
+    is a policy of ``runtime/memory.py`` ("dots", "nothing", "everything"
+    or None); it changes the step's memory and time, not its values.
     """
-    if remat is not None:
-        raise NotImplementedError("rematerialization (runtime/memory.py) is not ported yet")
+    apply = apply_with_remat(program, remat)
     solver_type = cfg.solver_type.lower()
     if solver_type not in ("sgd", "nesterov", "adagrad"):
         raise ValueError(f"unknown solver_type {cfg.solver_type!r}")
@@ -150,7 +152,7 @@ def make_train_step(program, cfg: SolverConfig, *, remat: Optional[str] = None):
         for i in range(cfg.iter_size):
             micro = {k: v[i] for k, v in batch.items()}
             with torch.enable_grad():
-                outs, state = program.apply(params, state, micro, generator=generator)
+                outs, state = apply(params, state, micro, generator=generator)
                 loss = program.total_loss(outs)
                 grads = torch.autograd.grad(loss, leaves, allow_unused=True)
             grads = [torch.zeros_like(w) if g is None else g for w, g in zip(leaves, grads)]

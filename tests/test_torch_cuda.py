@@ -19,7 +19,8 @@ from eco_tpu_torch.models import build_eco_lite, get_model
 from eco_tpu_torch.ops import poolfuse, preprocess, qconv
 from eco_tpu_torch.ops.quant import conv_nd_int8, inner_product_int8, quantize_weight
 from eco_tpu_torch.ops.pool import pool_nd
-from eco_tpu_torch.runtime import Program
+from eco_tpu_torch.ops.resize import preprocess_resize_on_device
+from eco_tpu_torch.runtime import Program, profiler
 from eco_tpu_torch.train import SolverConfig, init_train_state, make_train_step
 
 pytestmark = pytest.mark.cuda
@@ -545,3 +546,80 @@ def test_int8_max_pool_on_card_matches_cpu(cuda, shape, kernel, stride, pad):
         got = pool_nd(x.to(cuda), kernel=kernel, stride=stride, pad=pad, mode="max")
     assert poolfuse.fused_maxpool_launches == before
     assert got.dtype == torch.int8 and torch.equal(got.cpu(), want)
+
+
+def test_resize_on_card_matches_cpu_with_tf32_switched_on(cuda):
+    """The multi-scale plane's two products run in full f32 whatever the
+    process asks of f32 matmuls: with TF32 on everywhere the card equals
+    the CPU within 1e-4 on sampled windows, and at a full-size window it is
+    K1's f32 crop, bit for bit."""
+    old = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+           torch.get_float32_matmul_precision())
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        frames, h_off, w_off, mirror = _batch(cuda, 2, 4, 256, 340, 224)
+        gen = torch.Generator().manual_seed(1)
+        crop_h = torch.randint(168, 257, (2,), generator=gen)
+        crop_w = torch.randint(168, 257, (2,), generator=gen)
+        args = (torch.randint(0, 257, (2,), generator=gen) % (257 - crop_h),
+                torch.randint(0, 341, (2,), generator=gen) % (341 - crop_w),
+                crop_h, crop_w, mirror.cpu())
+        kw = dict(crop=224, mean=MEAN, out_dtype=torch.float32)
+        got = preprocess_resize_on_device(frames, *args, **kw)
+        want = preprocess_resize_on_device(frames.cpu(), *args, **kw)
+        assert torch.get_float32_matmul_precision() == "high"
+        assert (got.cpu() - want).abs().max().item() <= 1e-4
+        full = torch.full((2,), 224)
+        k1 = preprocess.preprocess_on_device(frames, h_off, w_off, mirror, **kw)
+        assert torch.equal(preprocess_resize_on_device(frames, h_off, w_off, full, full,
+                                                       mirror, **kw), k1)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) = old[:2]
+        torch.set_float32_matmul_precision(old[2])
+
+
+def test_remat_step_on_card_equals_the_plain_step(cuda):
+    """ECO-Lite at crop 64, S=4, N=2, bf16, dropout 0.5, through the raw
+    plane under cudnn.deterministic: the "dots" and "nothing" steps give the
+    plain step's loss and params bit for bit."""
+    graph = build_eco_lite(400, 4, crop_size=64, with_loss=True, batch=2, dropout_ratio=0.5)
+    prog = RawPreprocessProgram(
+        Program(graph, train=True, compute_dtype=torch.bfloat16, device=cuda), crop=64)
+    frames, h_off, w_off, mirror = _batch(cuda, 2, 4, 80, 96, 64)
+    batch = {"data": frames[None], "h_off": h_off[None], "w_off": w_off[None],
+             "mirror": mirror[None], "label": torch.tensor([[3, 397]], device=cuda)}
+    ts = init_train_state(*prog.init(torch.Generator().manual_seed(0),
+                                     {k: v[0] for k, v in batch.items()}))
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        runs = {}
+        for policy in (None, "dots", "nothing"):
+            step = make_train_step(prog, SolverConfig(clip_gradients=40.0), remat=policy)
+            runs[policy] = step(ts, batch, torch.Generator().manual_seed(7))
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    want, wm = runs[None]
+    for policy in ("dots", "nothing"):
+        got, gm = runs[policy]
+        assert torch.equal(gm["loss"], wm["loss"]), policy
+        for ln in want.params:
+            for k in want.params[ln]:
+                assert torch.equal(got.params[ln][k], want.params[ln][k]), (policy, ln, k)
+
+
+def test_time_layers_on_card_is_above_every_floor(cuda):
+    """Each layer's forward and backward time of a small bf16 ECO-Lite on
+    the card: finite, and above at least one of its floors (time_layers
+    raises otherwise); a time below both raises."""
+    graph = build_eco_lite(400, 4, crop_size=112, batch=4)
+    prog = Program(graph, train=True, compute_dtype=torch.bfloat16, device=cuda)
+    data = torch.randn(graph.inputs["data"], device=cuda)
+    params, state = prog.init(torch.Generator().manual_seed(0), {"data": data})
+    rows = profiler.time_layers(prog, params, state, {"data": data}, iters=3, backward=True)
+    assert [r[0] for r in rows] == [l.name for l in prog.exec_layers]
+    assert all(np.isfinite(r[2]) and r[2] > 0 for r in rows)
+    convs = [r for r in rows if r[1] == "convolution"]
+    assert convs and all(np.isfinite(r[3]) for r in convs)
+    with pytest.raises(RuntimeError, match="timer"):
+        profiler._check_floor("conv", "forward", 1e-6, 1e9, 1e9, torch.bfloat16)

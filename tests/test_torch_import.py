@@ -23,13 +23,18 @@ import eco_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(eco_tpu_torch.__path__, "eco_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 57, names
+assert len(names) >= 67, names
 assert {"eco_tpu_torch.ops.quant", "eco_tpu_torch.ops.qconv",
         "eco_tpu_torch.convert.quantize", "eco_tpu_torch.spec.graph",
         "eco_tpu_torch.spec.prototxt", "eco_tpu_torch.models.zoo",
         "eco_tpu_torch.utils.shapes", "eco_tpu_torch.data.pipeline",
         "eco_tpu_torch.data.device_prefetch", "eco_tpu_torch.apps.online",
-        "eco_tpu_torch.apps.tsn_eval", "eco_tpu_torch.convert.caffemodel"} <= set(names), names
+        "eco_tpu_torch.apps.tsn_eval", "eco_tpu_torch.convert.caffemodel",
+        "eco_tpu_torch.runtime.memory", "eco_tpu_torch.runtime.profiler",
+        "eco_tpu_torch.ops.resize", "eco_tpu_torch.convert.write",
+        "eco_tpu_torch.tools.cli", "eco_tpu_torch.tools.memreport",
+        "eco_tpu_torch.tools.datasets", "eco_tpu_torch.tools.logparse",
+        "eco_tpu_torch.tools.draw"} <= set(names), names
 """
 
 _IMPORT_CHIP_SMOKE = """

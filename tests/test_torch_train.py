@@ -442,8 +442,8 @@ def test_train_step_draws_dropout_per_layer_and_step():
 
 def test_step_rejects_what_is_not_ported():
     g = _mini_train_graph()
-    with pytest.raises(NotImplementedError, match="rematerialization"):
-        make_train_step(Program(g, train=True, device="cpu"), SolverConfig(), remat="dots")
+    with pytest.raises(ValueError, match="remat policy"):
+        make_train_step(Program(g, train=True, device="cpu"), SolverConfig(), remat="dot")
     with pytest.raises(ValueError, match="solver_type"):
         make_train_step(Program(g, train=True, device="cpu"), SolverConfig(solver_type="adam"))
     with pytest.raises(NotImplementedError, match="parallel"):
@@ -508,8 +508,11 @@ def test_raw_plane_init_and_what_it_does_not_take():
         {ln: {k: tuple(v.shape) for k, v in lp.items()} for ln, lp in want_p.items()}
     outs, _ = raw.apply(params, state, batch)
     assert outs["loss"].ndim == 0
-    with pytest.raises(NotImplementedError, match="multi-scale"):
-        raw.apply(params, state, {**batch, "crop_h": batch["h_off"], "crop_w": batch["w_off"]})
+    # a multi-scale batch takes the resize; at a full-size window it is the
+    # same crop
+    full = torch.full((N,), HW, dtype=torch.int32)
+    scaled, _ = raw.apply(params, state, {**batch, "crop_h": full, "crop_w": full})
+    assert torch.equal(scaled["loss"], outs["loss"])
 
 
 # --------------------------------------------------------------------------
