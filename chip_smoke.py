@@ -107,6 +107,24 @@ Phases (every failure raises; the exit code is then non-zero):
     ``quantize`` and ``test`` of the int8 graph with every K3 call held to
     its plain version.  Prints one ``{"cli": ...}`` line.
 
+15. Phase ``tail``: K1 at CaffeNet's input, (32, 1, 256, 256, 3) -> 227 (a
+    prime crop), random in-range offsets and mirrors, equal to its plain
+    version in bf16, f32 and int8 and timed in CUDA graphs beside its bound;
+    every one of the 35 layer types ported last (Deconvolution, LRN, MVN,
+    PReLU, BatchNorm, the losses, SPP, ROIPooling, Filter, ...) once on the
+    card against the same layer on the CPU at ECO-Lite's full widths (2D
+    layers on pool2's output (128, 28, 28, 192), 3D on the head's input (8,
+    16, 28, 28, 96), losses on (8, 400) logits), f32 with TF32 off, forward
+    and, where the layer has params or is a loss, backward: equal where it
+    moves or selects values, else within a stated bound; the 2D set once in
+    bf16 (finite); each timed on the card.  Then BVLC CaffeNet at its
+    published widths (``caffenet_prototxt``) trained from uint8 images
+    through K1 by the ``Trainer`` with its published solver: a warm-up and
+    ten timed bf16 steps at batch 32 (losses finite and falling, K1 once a
+    step), the test pass of two batches, one f32 step card against CPU;
+    and the CLI's ``time --bf16`` of its deploy form.  Prints one
+    ``{"tail": ...}`` line.
+
 Prints a ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it fails and
 prints no result.
@@ -148,7 +166,8 @@ from eco_tpu_torch.apps import serving
 from eco_tpu_torch.ops import _build, pool, poolfuse, preprocess, qconv, resize
 from eco_tpu_torch.runtime import Program, get_impl, memory
 from eco_tpu_torch.runtime.executor import Context
-from eco_tpu_torch.spec.graph import graph_to_json
+from eco_tpu_torch.spec.graph import GraphSpec, LayerSpec, graph_to_json
+from eco_tpu_torch.spec.prototxt import graph_from_prototxt
 from eco_tpu_torch.tools import cli, memreport
 from eco_tpu_torch.train import SolverConfig, Trainer, init_train_state, make_train_step
 from eco_tpu_torch.utils.shapes import normalize_spatial_param
@@ -262,6 +281,74 @@ snapshot_prefix: "{{prefix}}"
 random_seed: {SEED}
 """
 CLI_TEST_ITERATIONS, CLI_CALIB_BATCHES, CLI_TIME_ITERS = 2, 2, 5
+# The tail phase.  BVLC CaffeNet (models/bvlc_reference_caffenet/
+# train_val.prototxt) at its published widths: batch 32 of 227 crops of
+# 256x256 uint8 images, 1000 classes, and its solver (solver.prototxt)
+CAFFENET_WIDTHS = (96, 256, 384, 384, 256, 4096, 4096)
+CAFFENET_BATCH, CAFFENET_SIZE, CAFFENET_CROP, CAFFENET_CLASSES = 32, 256, 227, 1000
+CAFFENET_SOLVER = dict(base_lr=0.01, lr_policy="fixed", momentum=0.9, weight_decay=5e-4)
+CAFFENET_STEPS, CAFFENET_F32_VIDEOS = 10, 4
+
+
+def caffenet_prototxt(batch: int = CAFFENET_BATCH, crop: int = CAFFENET_CROP,
+                      widths=CAFFENET_WIDTHS, classes: int = CAFFENET_CLASSES,
+                      dropout: float = 0.5, deploy: bool = False) -> str:
+    """BVLC CaffeNet's TRAIN/TEST graph (bvlc_reference_caffenet/
+    train_val.prototxt) as prototxt text, its fillers, biases and lr/decay
+    multipliers as published; ``input`` blobs stand in for the LMDB Data
+    layer, the K1 crop for its transform.  ``widths`` are the outputs of
+    conv1-5, fc6 and fc7; ``deploy`` gives the deploy form (no label, a
+    Softmax "prob" in place of the loss and the accuracy)."""
+    def conv(name, bottom, n, k, std, bias, stride=1, pad=0, group=1):
+        return (f'layer {{ name: "{name}" type: "Convolution" bottom: "{bottom}" top: "{name}"\n'
+                f'  param {{ lr_mult: 1 decay_mult: 1 }} param {{ lr_mult: 2 decay_mult: 0 }}\n'
+                f'  convolution_param {{ num_output: {n} kernel_size: {k} stride: {stride} '
+                f'pad: {pad} group: {group}\n'
+                f'    weight_filler {{ type: "gaussian" std: {std} }}\n'
+                f'    bias_filler {{ type: "constant" value: {bias} }} }} }}\n'
+                f'layer {{ name: "relu{name[-1]}" type: "ReLU" bottom: "{name}" top: "{name}" }}\n')
+
+    def fc(name, bottom, n, std, bias):
+        return (f'layer {{ name: "{name}" type: "InnerProduct" bottom: "{bottom}" top: "{name}"\n'
+                f'  param {{ lr_mult: 1 decay_mult: 1 }} param {{ lr_mult: 2 decay_mult: 0 }}\n'
+                f'  inner_product_param {{ num_output: {n}\n'
+                f'    weight_filler {{ type: "gaussian" std: {std} }}\n'
+                f'    bias_filler {{ type: "constant" value: {bias} }} }} }}\n')
+
+    def pool(name, bottom):
+        return (f'layer {{ name: "{name}" type: "Pooling" bottom: "{bottom}" top: "{name}"\n'
+                f'  pooling_param {{ pool: MAX kernel_size: 3 stride: 2 }} }}\n')
+
+    def lrn(name, bottom):
+        return (f'layer {{ name: "{name}" type: "LRN" bottom: "{bottom}" top: "{name}"\n'
+                f'  lrn_param {{ local_size: 5 alpha: 0.0001 beta: 0.75 }} }}\n')
+
+    def relu_drop(n):
+        return (f'layer {{ name: "relu{n}" type: "ReLU" bottom: "fc{n}" top: "fc{n}" }}\n'
+                f'layer {{ name: "drop{n}" type: "Dropout" bottom: "fc{n}" top: "fc{n}"\n'
+                f'  dropout_param {{ dropout_ratio: {dropout} }} }}\n')
+
+    c1, c2, c3, c4, c5, f6, f7 = widths
+    text = (f'name: "CaffeNet"\ninput: "data"\n'
+            f'input_shape {{ dim: {batch} dim: 3 dim: {crop} dim: {crop} }}\n')
+    if not deploy:
+        text += f'input: "label"\ninput_shape {{ dim: {batch} }}\n'
+    text += (conv("conv1", "data", c1, 11, 0.01, 0, stride=4) + pool("pool1", "conv1")
+             + lrn("norm1", "pool1")
+             + conv("conv2", "norm1", c2, 5, 0.01, 1, pad=2, group=2) + pool("pool2", "conv2")
+             + lrn("norm2", "pool2")
+             + conv("conv3", "norm2", c3, 3, 0.01, 0, pad=1)
+             + conv("conv4", "conv3", c4, 3, 0.01, 1, pad=1, group=2)
+             + conv("conv5", "conv4", c5, 3, 0.01, 1, pad=1, group=2) + pool("pool5", "conv5")
+             + fc("fc6", "pool5", f6, 0.005, 1) + relu_drop(6)
+             + fc("fc7", "fc6", f7, 0.005, 1) + relu_drop(7)
+             + fc("fc8", "fc7", classes, 0.01, 0))
+    if deploy:
+        return text + 'layer { name: "prob" type: "Softmax" bottom: "fc8" top: "prob" }\n'
+    return text + ('layer { name: "accuracy" type: "Accuracy" bottom: "fc8" bottom: "label"\n'
+                   '  top: "accuracy" include { phase: TEST } }\n'
+                   'layer { name: "loss" type: "SoftmaxWithLoss" bottom: "fc8" bottom: "label"\n'
+                   '  top: "loss" }\n')
 
 
 def _card() -> str:
@@ -1860,6 +1947,441 @@ def cli_phase(card: str, tables=None) -> dict:
             "k3": {"cli_test_int8": k3_8}}
 
 
+# -- phase tail ---------------------------------------------------------------
+
+# The 35 layer types ported last, each once on the card against the CPU at
+# ECO-Lite Kinetics' full widths at batch 8 x 16 segments: 2D layers on
+# pool2's output, 3D layers on the 3D head's input, losses on the logits
+TAIL_2D, TAIL_3D = (BATCH * SEGMENTS, 28, 28, 192), (BATCH, SEGMENTS, 28, 28, 96)
+TAIL_ROIS, TAIL_FILTER_CAPACITY, TAIL_ITERS = 256, 8, 5
+# Relative L2 of each value, card (f32, TF32 off) against CPU, by what the
+# layer computes: 0 is torch.equal (layers that move or select values);
+# pointwise maths take libm functions of other precision; sums and the
+# deconvolutions' products add in other orders.  Gradients (of the layers
+# with params, and of the losses) are held to TAIL_GRAD_BOUND.
+TAIL_POINTWISE_BOUND, TAIL_SUM_BOUND, TAIL_GRAD_BOUND = 1e-6, 1e-5, 1e-4
+# One f32 CaffeNet step, card (TF32 off) against CPU: relative L2 of the
+# parameter updates; no BN here, so only the sums' order differs
+CAFFENET_F32_UPDATE_REL_L2_BOUND = 1e-3
+
+
+def check_k1_caffenet(dev, card: str) -> dict:
+    """K1 at CaffeNet's input, (32, 1, 256, 256, 3) -> 227 (a prime crop: the
+    rows split 57/57/57/56; 681 values a row), random in-range offsets and
+    mirrors, against its plain version in bf16, f32 and int8 (torch.equal,
+    device and host offsets), then timed as device time in CUDA graphs
+    beside its bound."""
+    n, size, crop = CAFFENET_BATCH, CAFFENET_SIZE, CAFFENET_CROP
+    gen = torch.Generator(device=dev).manual_seed(SEED + 227)
+    frames = torch.randint(0, 256, (n, 1, size, size, 3), dtype=torch.uint8, device=dev,
+                           generator=gen)
+    h_off = torch.randint(0, size - crop + 1, (n,), device=dev, generator=gen)
+    w_off = torch.randint(0, size - crop + 1, (n,), device=dev, generator=gen)
+    mirror = torch.randint(0, 2, (n,), device=dev, generator=gen).bool()
+    host = (h_off.cpu(), w_off.cpu(), mirror.cpu())
+    packed = preprocess._pack_aug(h_off.int(), w_off.int(), mirror.int(), n, dev)
+    ms, bound = {}, {}
+    for name, (dtype, act_scale) in K1_TYPES.items():
+        kw = dict(crop=crop, mean=MEAN, out_dtype=dtype, act_scale=act_scale)
+        want = preprocess.crop_normalize_reference(frames, h_off, w_off, mirror, **kw)
+        for where, offsets in (("device", (h_off, w_off, mirror)), ("host", host)):
+            got = preprocess.preprocess_on_device(frames, *offsets, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"K1 at crop {crop} disagrees with its plain version in "
+                                     f"{name}, {where} offsets")
+        out = torch.empty_like(want)
+        kernel = lambda: _k1_call(preprocess._kernel(), frames, packed, out, act_scale, False)
+        ms[name] = (_graph_ms(kernel, K1_ITERS) + _graph_ms(kernel, K1_ITERS)) / 2
+        bound[name], _ = _bound_ms(n * crop * crop * 3 + n * crop * crop * 3 * out.element_size())
+        print(f"K1 {name:4s} at ({n}, 1, {size}, {size}, 3) -> {crop}: equal to its plain "
+              f"version (device and host offsets); device time {ms[name]:.4f} ms (CUDA graphs), "
+              f"bound {bound[name]:.4f} ms, {bound[name] / ms[name]:.1%} of it; {card}")
+    return {"ms_by_dtype_crop227": ms, "bound_ms_by_dtype_crop227": bound}
+
+
+def _tail_inputs():
+    """The tail cases' inputs, on the CPU, from the seed."""
+    gen = torch.Generator().manual_seed(SEED + 9)
+    x2 = torch.randn(TAIL_2D, generator=gen)
+    logits = torch.randn((BATCH, NUM_CLASSES), generator=gen) * 2
+    x1 = torch.randint(0, CROP - 32, (TAIL_ROIS,), generator=gen)
+    y1 = torch.randint(0, CROP - 32, (TAIL_ROIS,), generator=gen)
+    rois = torch.stack([
+        torch.randint(0, TAIL_2D[0], (TAIL_ROIS,), generator=gen), x1, y1,
+        (x1 + torch.randint(8, 128, (TAIL_ROIS,), generator=gen)).clamp(max=CROP - 1),
+        (y1 + torch.randint(8, 128, (TAIL_ROIS,), generator=gen)).clamp(max=CROP - 1),
+    ], dim=1).float()
+    return {
+        "x2": x2, "x3": torch.randn(TAIL_3D, generator=gen), "pos": x2.abs() + 0.5,
+        "b": torch.randn(TAIL_2D[0], generator=gen), "rois": rois,
+        "sel": (torch.rand(TAIL_2D[0], generator=gen) < 0.05).float(),
+        "logits": logits, "label": torch.randint(0, NUM_CLASSES, (BATCH,), generator=gen),
+        "probs": torch.softmax(logits, -1), "target": torch.randn(logits.shape, generator=gen),
+        "binary": (torch.rand(logits.shape, generator=gen) > 0.5).float(),
+        "H": torch.rand((NUM_CLASSES, NUM_CLASSES), generator=gen),
+        "sim": torch.randint(0, 2, (BATCH,), generator=gen).float(),
+        "weight": torch.rand(logits.shape, generator=gen),
+    }
+
+
+def _tail_cases():
+    """name -> (type, options, bottoms, tops, train, the bottoms to
+    differentiate, bound).  The gradients of every case with params or a
+    loss are checked."""
+    eq, pw, sm = 0.0, TAIL_POINTWISE_BOUND, TAIL_SUM_BOUND
+    gauss = {"type": "gaussian", "std": 0.5}
+    one = ("y",)
+    loss2 = lambda t, **o: (t, o, ("logits", "target"), one, False, ("logits", "target"), sm)
+    return {
+        "deconvolution": ("deconvolution", dict(num_output=96, kernel_size=4, stride=2, pad=1,
+                                                bias_filler=gauss), ("x2",), one, False,
+                          ("x2",), sm),
+        "deconvolution_group2": ("deconvolution", dict(num_output=96, kernel_size=4, stride=2,
+                                                       pad=1, group=2), ("x2",), one, False,
+                                 ("x2",), sm),
+        "deconvolution_3d": ("deconvolution", dict(num_output=48, kernel_size=[3, 4, 4],
+                                                   stride=[1, 2, 2], pad=[1, 1, 1]),
+                             ("x3",), one, False, ("x3",), sm),
+        "permute_3d": ("permute", dict(order=[0, 2, 1, 3, 4]), ("x3",), one, False, (), eq),
+        "power": ("power", dict(power=2.0, scale=0.5, shift=1.5), ("x2",), one, False, (), pw),
+        "silence": ("silence", {}, ("x2",), (), False, (), eq),
+        "bias": ("bias", dict(filler=gauss), ("x2",), one, False, ("x2",), pw),
+        "bias_two_bottoms": ("bias", dict(axis=0), ("x2", "b"), one, False, ("x2", "b"), pw),
+        "gather": ("gather", {}, ("x2",), one, False, (), eq),
+        "scatter": ("scatter", {}, ("x2",), one, False, (), eq),
+        "sigmoid": ("sigmoid", {}, ("x2",), one, False, (), pw),
+        "tanh": ("tanh", {}, ("x2",), one, False, (), pw),
+        "absval": ("absval", {}, ("x2",), one, False, (), eq),
+        "exp": ("exp", dict(scale=0.5), ("x2",), one, False, (), pw),
+        "log": ("log", {}, ("pos",), one, False, (), pw),
+        "bnll": ("bnll", {}, ("x2",), one, False, (), pw),
+        "threshold": ("threshold", dict(threshold=0.1), ("x2",), one, False, (), eq),
+        "argmax": ("argmax", {}, ("x2",), one, False, (), eq),
+        "lrn": ("lrn", dict(local_size=5, alpha=1e-4, beta=0.75), ("x2",), one, False, (), pw),
+        "mvn": ("mvn", {}, ("x2",), one, False, (), sm),
+        "prelu": ("prelu", {}, ("x2",), one, False, ("x2",), pw),
+        "batchnorm_train": ("batchnorm", {}, ("x2",), one, True, ("x2",), sm),
+        "batchnorm_train_3d": ("batchnorm", {}, ("x3",), one, True, ("x3",), sm),
+        "euclideanloss": loss2("euclideanloss"),
+        "hingeloss": ("hingeloss", {}, ("logits", "label"), one, False, ("logits",), sm),
+        "sigmoidcrossentropyloss": ("sigmoidcrossentropyloss", {}, ("logits", "binary"), one,
+                                    False, ("logits",), sm),
+        "infogainloss": ("infogainloss", {}, ("probs", "label", "H"), one, False,
+                         ("probs", "H"), sm),
+        "contrastiveloss": ("contrastiveloss", dict(margin=20.0),
+                            ("logits", "target", "sim"), one, False, ("logits", "target"), sm),
+        "multinomiallogisticloss": ("multinomiallogisticloss", {}, ("probs", "label"), one,
+                                    False, ("probs",), sm),
+        "smoothl1loss": ("smoothl1loss", {}, ("logits", "target", "weight"), one, False,
+                         ("logits", "target"), sm),
+        "spp": ("spp", dict(pyramid_height=3), ("x2",), one, False, (), eq),
+        "roipooling": ("roipooling", dict(pooled_h=7, pooled_w=7, spatial_scale=1 / 8),
+                       ("x2", "rois"), one, False, (), eq),
+        "filter": ("filter", dict(capacity=TAIL_FILTER_CAPACITY), ("x2", "sel"),
+                   ("y", "valid"), False, (), eq),
+        "im2col": ("im2col", dict(kernel_size=3, pad=1), ("x2",), one, False, (), eq),
+        "reduction": ("reduction", dict(operation="mean", axis=1), ("x2",), one, False, (), sm),
+        "normalize": ("normalize", {}, ("x2",), one, False, (), sm),
+        "batchreduction": ("batchreduction", dict(reduction_param={"operation": "topk",
+                                                                   "axis": 2, "k": 3}),
+                           ("x2",), one, False, (), sm),
+        "dummydata": ("dummydata", dict(shape=[{"dim": [TAIL_2D[0], TAIL_2D[3], 28, 28]}],
+                                        data_filler={"type": "constant", "value": 0.5}),
+                      (), one, False, (), eq),
+        "hdf5output": ("hdf5output", {}, ("x2", "logits"), (), False, (), eq),
+    }
+
+
+def _tail_run(graph, train, params, state, inputs, wrt, cots, dev):
+    """One case on ``dev``, on copies of the CPU's params and inputs: the
+    outputs, the new state, and (with ``cots``) the gradients of sum(out *
+    cot) by the params ("layer/name") and the ``wrt`` inputs."""
+    grad = bool(cots)
+    p = {ln: {k: v.detach().to(dev, copy=True).requires_grad_(grad) for k, v in lp.items()}
+         for ln, lp in params.items()}
+    xs = {k: v.detach().to(dev, copy=True).requires_grad_(grad and k in wrt)
+          for k, v in inputs.items()}
+    with torch.set_grad_enabled(grad):
+        outs, new_state = Program(graph, train=train, device=dev).apply(p, _to(state, dev), xs)
+    grads = {}
+    if grad:
+        leaves = {f"{ln}/{k}": v for ln, lp in p.items() for k, v in lp.items()}
+        leaves.update({k: xs[k] for k in wrt})
+        total = sum((outs[k].float() * c.to(dev)).sum() for k, c in cots.items())
+        grads = dict(zip(leaves, torch.autograd.grad(total, list(leaves.values()))))
+    return outs, new_state, grads
+
+
+def _tail_ms(graph, train, params, state, inputs, wrt, cots, dev):
+    """The case's forward on the card, and its forward and backward, in ms a
+    call (CUDA events; the Program's host work included)."""
+    prog = Program(graph, train=train, device=dev)
+    p, s = _to(params, dev), _to(state, dev)
+    xs = {k: v.to(dev) for k, v in inputs.items()}
+
+    def fwd():
+        with torch.no_grad():
+            return prog.apply(p, s, xs)
+
+    fwd_ms = _ms_per_call(fwd, TAIL_ITERS)
+    if not cots:
+        return fwd_ms, None
+    leaves = [v.requires_grad_() for lp in p.values() for v in lp.values()]
+    leaves += [xs[k].requires_grad_() for k in wrt]
+    cots = {k: c.to(dev) for k, c in cots.items()}
+
+    def fwd_bwd():
+        outs, _ = prog.apply(p, s, xs)
+        return torch.autograd.grad(sum((outs[k].float() * c).sum() for k, c in cots.items()),
+                                   leaves)
+
+    return fwd_ms, _ms_per_call(fwd_bwd, TAIL_ITERS) - fwd_ms
+
+
+def _held(what: str, got, want, bound: float) -> float:
+    """``got`` (the card's) against ``want`` (the CPU's): equal where the
+    bound is 0, else within the bound in relative L2; returns the error."""
+    got = got.detach().cpu()
+    want = want.detach()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)} on the card, "
+                             f"{want.dtype} {tuple(want.shape)} on the CPU")
+    if bound == 0.0:
+        if not torch.equal(got, want):
+            raise AssertionError(f"{what}: the card's differs from the CPU's in "
+                                 f"{int((got != want).sum())} values")
+        return 0.0
+    err = ((got.double() - want.double()).norm() / want.double().norm().clamp_min(1e-30)).item()
+    if not err <= bound:
+        raise AssertionError(f"{what}: card vs CPU relative L2 {err:.3e} above {bound}")
+    return err
+
+
+@_cudnn_flags(allow_tf32=False)
+def tail_layers(dev, card: str) -> dict:
+    """Every one of the 35 layer types on the card against the same layer on
+    the CPU (forward, and backward where it has params or is a loss), then
+    the 2D set once in bf16 (finite), and each case timed on the card by
+    the profiler (forward, and backward where checked)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    inputs = _tail_inputs()
+    found, times, t0 = {}, [], time.perf_counter()
+    for i, (name, (ltype, opts, bottoms, tops, train, wrt, bound)) in enumerate(
+            _tail_cases().items()):
+        ins = {k: inputs[k] for k in bottoms}
+        graph = GraphSpec(name, {k: tuple(v.shape) for k, v in ins.items()},
+                          [LayerSpec(name, ltype, tuple(bottoms), tuple(tops), opts)])
+        params, state = Program(graph, train=train, device="cpu").init(
+            torch.Generator().manual_seed(SEED + i), {k: v.shape for k, v in ins.items()})
+        card_outs, card_state, _ = _tail_run(graph, train, params, state, ins, wrt, {}, dev)
+        cpu_outs, cpu_state, _ = _tail_run(graph, train, params, state, ins, wrt, {}, "cpu")
+        if set(card_outs) != set(cpu_outs) or set(card_outs) != set(tops):
+            raise AssertionError(f"{name}: tops {sorted(card_outs)} on the card, "
+                                 f"{sorted(cpu_outs)} on the CPU")
+        errs = [_held(f"{name} {k}", card_outs[k], cpu_outs[k], bound) for k in tops]
+        errs += [_held(f"{name} state {ln}/{k}", card_state[ln][k], cpu_state[ln][k],
+                       TAIL_SUM_BOUND) for ln in cpu_state for k in cpu_state[ln]]
+        grad_err, cots = None, {}
+        if params or wrt:
+            gen = torch.Generator().manual_seed(SEED + 100 + i)
+            cots = {k: torch.randn(cpu_outs[k].shape, generator=gen) for k in tops}
+            _, _, card_g = _tail_run(graph, train, params, state, ins, wrt, cots, dev)
+            _, _, cpu_g = _tail_run(graph, train, params, state, ins, wrt, cots, "cpu")
+            grad_err = max(_held(f"{name} gradient {k}", card_g[k], cpu_g[k], TAIL_GRAD_BOUND)
+                           for k in cpu_g)
+            del card_g, cpu_g
+        fwd_ms, bwd_ms = _tail_ms(graph, train, params, state, ins, wrt, cots, dev)
+        times.append((name, fwd_ms, bwd_ms))
+        found[name] = {"type": ltype, "bound": bound, "max_rel_l2": max(errs, default=0.0),
+                       "grad_rel_l2": grad_err, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms}
+        print(f"tail {name}: card vs CPU {'equal' if bound == 0 else 'rel L2 %.3e (bound %g)' % (max(errs, default=0.0), bound)}"
+              + (f", gradients rel L2 {grad_err:.3e} (bound {TAIL_GRAD_BOUND})"
+                 if grad_err is not None else "")
+              + f"; card forward {fwd_ms:.4f} ms" + (f", backward {bwd_ms:.4f} ms"
+                                                     if bwd_ms is not None else ""))
+        del card_outs, cpu_outs
+    types = {f["type"] for f in found.values()}
+    if len(types) != 35:
+        raise AssertionError(f"tail checked {len(types)} layer types, not 35")
+    # the 2D set once in bf16: finite
+    x2 = inputs["x2"].to(dev)
+    bf16 = []
+    for i, (name, (ltype, opts, bottoms, tops, train, _, _)) in enumerate(_tail_cases().items()):
+        if not bottoms or bottoms[0] != "x2" or not tops:
+            continue
+        ins = {k: (x2 if k == "x2" else inputs[k].to(dev)) for k in bottoms}
+        graph = GraphSpec(name, {k: tuple(v.shape) for k, v in ins.items()},
+                          [LayerSpec(name, ltype, tuple(bottoms), tuple(tops), opts)])
+        prog = Program(graph, train=train, compute_dtype=torch.bfloat16, device=dev)
+        params, state = prog.init(torch.Generator().manual_seed(SEED + i),
+                                  {k: v.shape for k, v in ins.items()})
+        with torch.no_grad():
+            outs, _ = prog.apply(params, state, ins)
+        for k, v in outs.items():
+            if v.is_floating_point() and not torch.isfinite(v).all():
+                raise AssertionError(f"tail {name} bf16: non-finite {k}")
+        bf16.append(name)
+    slowest = sorted(times, key=lambda t: t[1] + (t[2] or 0.0), reverse=True)[:8]
+    print(f"tail: {len(found)} cases of {len(types)} layer types, card vs CPU within their "
+          f"bounds; bf16 finite in {len(bf16)} 2D cases; slowest on the card (fwd, bwd ms) "
+          f"{[(n, round(f, 4), None if b is None else round(b, 4)) for n, f, b in slowest]}; "
+          f"{time.perf_counter() - t0:.1f} s; {card}")
+    return {"layers": found, "bf16_finite": bf16,
+            "slowest": [[n, f, b] for n, f, b in slowest]}
+
+
+def _caffenet_batch(seed: int, images: int = CAFFENET_BATCH):
+    """One micro-batch of one-frame videos in pinned host memory, with a
+    leading micro-batch axis of 1: uint8 256x256 images, random in-range
+    227 offsets, mirrors and labels."""
+    gen = torch.Generator().manual_seed(seed)
+    size, crop = CAFFENET_SIZE, CAFFENET_CROP
+    batch = {
+        "data": torch.randint(0, 256, (1, images, 1, size, size, 3), dtype=torch.uint8,
+                              generator=gen),
+        "h_off": torch.randint(0, size - crop + 1, (1, images), generator=gen),
+        "w_off": torch.randint(0, size - crop + 1, (1, images), generator=gen),
+        "mirror": torch.randint(0, 2, (1, images), generator=gen).bool(),
+        "label": torch.randint(0, CAFFENET_CLASSES, (1, images), generator=gen),
+    }
+    return {k: v.pin_memory() for k, v in batch.items()}
+
+
+def caffenet_train(dev, card: str) -> dict:
+    """Full-width CaffeNet from uint8 images through K1: a warm-up step and
+    ten timed bf16 train steps (the published solver), the test pass of two
+    batches, and one f32 step card against CPU."""
+    t0 = time.perf_counter()
+    net = dict(crop=CAFFENET_CROP, widths=CAFFENET_WIDTHS, classes=CAFFENET_CLASSES)
+    graph = graph_from_prototxt(caffenet_prototxt(CAFFENET_BATCH, **net))
+    crop = CAFFENET_CROP
+    train_prog = RawPreprocessProgram(
+        Program(graph, train=True, compute_dtype=torch.bfloat16, device=dev), crop=crop,
+        mean=MEAN)
+    test_prog = RawPreprocessProgram(
+        Program(graph, compute_dtype=torch.bfloat16, device=dev), crop=crop, mean=MEAN)
+    cfg = SolverConfig(**CAFFENET_SOLVER, max_iter=1 + CAFFENET_STEPS, display=0, snapshot=0)
+    step = make_train_step(train_prog, cfg)
+    events = []
+
+    def timed_step(ts, batch, generator):
+        out = step(ts, batch, generator)
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+        return out
+
+    trainer = Trainer(train_prog, cfg, test_program=test_prog, step_fn=timed_step,
+                      log_fn=print, metrics_lag=1)
+    batch = _caffenet_batch(SEED + 11)
+    ts = trainer.init_state({k: v[0] for k, v in batch.items()}, seed=SEED)
+    torch.cuda.synchronize()
+    n_params = sum(v.numel() for lp in ts.params.values() for v in lp.values())
+    setup_s = time.perf_counter() - t0
+    seen = []
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_counts()
+    ts = trainer.solve(ts, itertools.repeat(batch), hooks=[
+        lambda it, _ts, m: seen.append((it, float(m["loss"])))])
+    k1_train, k2, k3 = _counts()
+    per_step = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    losses = [l for _, l in seen]
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"caffenet: {n_params} params, set-up {setup_s:.1f} s; {len(seen)} bf16 steps of "
+          f"{CAFFENET_BATCH} images (one repeated batch), SGD lr {CAFFENET_SOLVER['base_lr']}, "
+          f"momentum {CAFFENET_SOLVER['momentum']}; losses {[round(l, 4) for l in losses]}")
+    print(f"caffenet: timed steps (ms, in order) {[round(t, 3) for t in per_step]}, median "
+          f"{statistics.median(per_step):.3f} ms, "
+          f"{CAFFENET_STEPS * CAFFENET_BATCH / (sum(per_step) / 1e3):.1f} images/s bf16; "
+          f"peak memory {peak:.2f} GiB; K1 launches {k1_train}, K2 {k2}, K3 {k3}; {card}")
+    if [it for it, _ in seen] != list(range(1 + CAFFENET_STEPS)):
+        raise AssertionError(f"caffenet steps seen {[it for it, _ in seen]}")
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError("caffenet: non-finite loss")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"caffenet: loss did not fall: {losses[0]} -> {losses[-1]}")
+    if (k1_train, k2, k3) != (1 + CAFFENET_STEPS, 0, 0):
+        raise AssertionError(f"caffenet training launched K1 {k1_train}, K2 {k2}, K3 {k3} times")
+
+    test_batches = [{k: v[0] for k, v in b.items()}
+                    for b in (batch, _caffenet_batch(SEED + 12))]
+    _reset_counts()
+    means = trainer.test(ts, test_batches)
+    k1_test = _counts()[0]
+    if k1_test != len(test_batches) or not all(map(math.isfinite, means.values())):
+        raise AssertionError(f"caffenet test: {means}, K1 launches {k1_test}")
+    del trainer, ts, train_prog, test_prog
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    images = CAFFENET_F32_VIDEOS
+    g32 = graph_from_prototxt(caffenet_prototxt(images, **net, dropout=0.0))
+    params, state = Program(g32, train=True, device="cpu").init(
+        torch.Generator().manual_seed(SEED), {"data": (images, crop, crop, 3), "label": (images,)})
+    micro = {k: v[:, :images] for k, v in batch.items()}
+    updates, notes = [], []
+    for where in ("cpu", dev):
+        t1 = time.perf_counter()
+        p, s = _to(params, where), _to(state, where)
+        prog = RawPreprocessProgram(Program(g32, train=True, device=where), crop=crop, mean=MEAN)
+        ts32, m = make_train_step(prog, SolverConfig(**CAFFENET_SOLVER))(
+            init_train_state(p, s), micro)
+        updates.append(torch.cat([(ts32.params[ln][k] - p[ln][k]).flatten().cpu()
+                                  for ln in sorted(p) for k in sorted(p[ln])]))
+        notes.append(f"{where}: loss {float(m['loss']):.6f}, {time.perf_counter() - t1:.1f} s")
+    rel = ((updates[1] - updates[0]).norm() / updates[0].norm()).item()
+    print(f"caffenet f32 step card vs CPU, {images} images, TF32 off, dropout 0: update rel L2 "
+          f"{rel:.3e} (bound {CAFFENET_F32_UPDATE_REL_L2_BOUND}); " + "; ".join(notes))
+    if not rel <= CAFFENET_F32_UPDATE_REL_L2_BOUND:
+        raise AssertionError(f"caffenet f32 update on the card off the CPU's by {rel}")
+    return {"params": n_params, "losses": losses, "step_ms": per_step,
+            "median_step_ms": statistics.median(per_step), "peak_gib": peak, "test": means,
+            "f32_update_rel_l2": rel, "k1": {"caffenet_train": k1_train,
+                                             "caffenet_test": k1_test}}
+
+
+@_cudnn_flags(benchmark=False)
+def caffenet_cli_time(card: str, tables=None) -> dict:
+    """The CLI's ``time --bf16`` on CaffeNet's deploy form: the per-layer
+    table (LRN among its rows)."""
+    with tempfile.TemporaryDirectory() as root:
+        net = os.path.join(root, "caffenet_deploy.prototxt")
+        with open(net, "w") as f:
+            f.write(caffenet_prototxt(CAFFENET_BATCH, CAFFENET_CROP, CAFFENET_WIDTHS,
+                                      CAFFENET_CLASSES, deploy=True))
+        with _captured(echo=False) as out:
+            rows = cli.main(["time", "--net", net, "--iters", str(CLI_TIME_ITERS), "--bf16"])
+    if tables:
+        os.makedirs(tables, exist_ok=True)
+        with open(os.path.join(tables, "cli_time_caffenet_bf16.txt"), "w") as f:
+            f.write(f"{card}\n{out.getvalue()}")
+    lrn = [[r[0], round(r[2], 4)] for r in rows if r[1] == "lrn"]
+    total = sum(r[2] for r in rows)
+    print(f"cli time --bf16 CaffeNet deploy, batch {CAFFENET_BATCH}: {len(rows)} layers, forward "
+          f"total {total:.3f} ms; LRN {lrn}; ten slowest {_slowest(rows)}; {card}")
+    if len(lrn) != 2:
+        raise AssertionError(f"the time table has LRN rows {lrn}")
+    return {"layers": len(rows), "forward_total_ms": total, "lrn_ms": lrn,
+            "slowest": _slowest(rows)}
+
+
+def tail_phase(dev, card: str, tables=None) -> dict:
+    """Phase ``tail``: K1 at crop 227, the 35 tail layer types card against
+    CPU, CaffeNet trained from K1, and the CLI's time table of CaffeNet.
+    Prints one ``{"tail": ...}`` line; returns K1's record additions and
+    its launches."""
+    t0 = time.perf_counter()
+    k1 = check_k1_caffenet(dev, card)
+    layers = tail_layers(dev, card)
+    caffenet = caffenet_train(dev, card)
+    cli_time = caffenet_cli_time(card, tables)
+    seconds = time.perf_counter() - t0
+    print(json.dumps({"tail": {"k1_crop227": k1, "layers": layers,
+                               "caffenet": {k: v for k, v in caffenet.items() if k != "k1"},
+                               "cli_time": cli_time, "seconds": seconds, "card": card}}))
+    return {"k1_record": k1, "k1": caffenet["k1"]}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--k3-baseline", metavar="QCONV_CU",
@@ -1924,13 +2446,16 @@ def main() -> None:
     resize_checked = check_resize(dev, card)
     remat = remat_phase(dev, card)
     cli_counts = cli_phase(card, args.cli_tables)
+    tail = tail_phase(dev, card, args.cli_tables)
+    checked.update(tail["k1_record"])
     for name in ("jax", "eco_tpu"):
         if name in sys.modules:
             raise AssertionError(f"the port imported {name}")
     k1_paths = {"serve": k1_serve, "train": k1_train, "test": len(test_batches),
                 "serve_k2": k1_k2serve, "serve_full": k1_full, "serve_full_k2": k1_full_k2,
                 "serve_int8_lite": k1_int8_lite, "serve_int8_full": k1_int8_full,
-                **online_counts["k1"], **k1_e2e, "remat": remat["k1"], **cli_counts["k1"]}
+                **online_counts["k1"], **k1_e2e, "remat": remat["k1"], **cli_counts["k1"],
+                **tail["k1"]}
     k2_paths = {"test": k2_test, "serve_k2": k2_serve, "serve_full_k2": k2_full}
     k3_paths = {"serve_int8_lite": k3_int8_lite, "serve_int8_full": k3_int8_full,
                 **online_counts["k3"], **cli_counts["k3"]}

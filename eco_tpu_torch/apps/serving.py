@@ -97,6 +97,9 @@ class RawPreprocessProgram:
     and ``crop_w`` in it, sampled per video) takes the crop and bilinear
     resize of ``ops/resize.py`` instead of the kernel.  The clips are made
     before the wrapped program runs, so ``remat`` never recomputes them.
+    An image graph, whose ``data`` input is declared (N, H, W, C) (CaffeNet
+    and the other Caffe image nets), takes one-frame videos: the kernel's
+    (N, 1, crop, crop, 3) clips are viewed as (N, crop, crop, 3) images.
     """
 
     _AUG_KEYS = ("h_off", "w_off", "mirror", "crop_h", "crop_w")
@@ -114,6 +117,15 @@ class RawPreprocessProgram:
         self.loss_names = program.loss_names
         self.exec_layers = program.exec_layers
         self.total_loss = program.total_loss
+        declared = program.graph.inputs.get("data")
+        self._images = declared is not None and len(declared) == 4
+
+    def _as_images(self, clips):
+        if not self._images:
+            return clips
+        if clips.shape[1] != 1:
+            raise ValueError(f"an image graph takes one frame a video, got {clips.shape[1]}")
+        return clips.flatten(0, 1)
 
     def _clips(self, inputs):
         dtype = self.compute_dtype or torch.float32
@@ -123,12 +135,12 @@ class RawPreprocessProgram:
         if "crop_h" in inputs:
             # multi-scale: the sampled (crop_h, crop_w) window, cropped and
             # resized by two batched products (ops/resize.py)
-            return preprocess_resize_on_device(
+            return self._as_images(preprocess_resize_on_device(
                 frames, inputs["h_off"], inputs["w_off"], inputs["crop_h"], inputs["crop_w"],
-                inputs["mirror"], crop=self.crop, mean=self.mean, out_dtype=dtype)
-        return preprocess_on_device(
+                inputs["mirror"], crop=self.crop, mean=self.mean, out_dtype=dtype))
+        return self._as_images(preprocess_on_device(
             frames, inputs["h_off"], inputs["w_off"], inputs["mirror"], crop=self.crop,
-            mean=self.mean, out_dtype=dtype)
+            mean=self.mean, out_dtype=dtype))
 
     def _inner_inputs(self, inputs):
         return {k: v for k, v in inputs.items() if k != "data" and k not in self._AUG_KEYS}
@@ -136,7 +148,7 @@ class RawPreprocessProgram:
     def init(self, generator, sample_inputs):
         inner = self._inner_inputs(sample_inputs)
         n, s = tuple(getattr(sample_inputs["data"], "shape", sample_inputs["data"]))[:2]
-        inner["data"] = (n, s, self.crop, self.crop, 3)
+        inner["data"] = ((n * s,) if self._images else (n, s)) + (self.crop, self.crop, 3)
         return self.inner.init(generator, inner)
 
     def apply(self, params, state, inputs, *, generator=None, capture=None, remat=None):

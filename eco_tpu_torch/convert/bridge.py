@@ -1,16 +1,21 @@
 """Carry params and state between ``eco_tpu``'s layout and this package's.
 
 The reference keeps convolution weights spatial-first, ``(*k, C_in/g,
-C_out)``, and fc weights ``(D_in, D_out)``; this package keeps PyTorch's
-``(C_out, C_in/g, *k)`` and ``(D_out, D_in)``.  BN, Scale and bias vectors
-carry over unchanged.  ``params_from_jax`` takes nested dicts of arrays
+C_out)``, deconvolution weights ``(*k, C_in, C_out/g)`` and fc weights
+``(D_in, D_out)``; this package keeps PyTorch's ``(C_out, C_in/g, *k)``,
+``(C_in, C_out/g, *k)`` and ``(D_out, D_in)``.  Every other param (BN,
+Scale, PReLU slopes, Bias vectors) and every state entry (BN and BatchNorm
+statistics) carries over unchanged.  ``params_from_jax`` takes nested dicts of arrays
 (numpy, or anything ``numpy.asarray`` takes); ``params_to_jax`` gives nested
 dicts of numpy arrays.  No JAX import is needed.
 
 A layer's type decides its weight layout.  Without a graph (``graph=None``,
 as for a checkpoint file) the rank decides: a ``w`` of rank 2 is an fc
-weight and one of rank >= 3 a convolution weight, the only two weight
-layouts that the port's layers have.  The int8 layers of a quantized graph
+weight and one of rank >= 3 a convolution weight.  A deconvolution weight
+cannot be told from a convolution weight by its shape, so without the graph
+it is carried as a convolution weight: a checkpoint file's round trip
+returns it as it was, but the file holds it axes-swapped against the
+reference's deconvolution layout.  The int8 layers of a quantized graph
 (``qconvolution``, ``qinnerproduct``) take the layouts of their float
 twins; an int8 convolution weight comes in ``ops.qconv.kernel_layout``
 memory order, (C_out, *k, C_in/g), so that K3 reads it with no copy, and
@@ -29,6 +34,7 @@ from eco_tpu_torch.ops.qconv import kernel_layout
 
 
 _WEIGHT_KINDS = {"convolution": "convolution", "qconvolution": "convolution",
+                 "deconvolution": "deconvolution",
                  "innerproduct": "innerproduct", "qinnerproduct": "innerproduct"}
 
 
@@ -51,17 +57,23 @@ def _to_torch_tensor(layer_type: Optional[str], pname: str, a: np.ndarray) -> to
 def _to_torch_layout(layer_type: Optional[str], pname: str, a: np.ndarray) -> np.ndarray:
     if pname != "w":
         return a
-    if _weight_kind(layer_type, a) == "convolution":
-        nsp = a.ndim - 2
+    kind = _weight_kind(layer_type, a)
+    nsp = a.ndim - 2
+    if kind == "convolution":
         return np.transpose(a, (nsp + 1, nsp) + tuple(range(nsp)))
+    if kind == "deconvolution":
+        return np.transpose(a, (nsp, nsp + 1) + tuple(range(nsp)))
     return a.T
 
 
 def _to_jax_layout(layer_type: Optional[str], pname: str, a: np.ndarray) -> np.ndarray:
     if pname != "w":
         return a
-    if _weight_kind(layer_type, a) == "convolution":
+    kind = _weight_kind(layer_type, a)
+    if kind == "convolution":
         return np.transpose(a, tuple(range(2, a.ndim)) + (1, 0))
+    if kind == "deconvolution":
+        return np.transpose(a, tuple(range(2, a.ndim)) + (0, 1))
     return a.T
 
 

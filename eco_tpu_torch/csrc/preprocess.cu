@@ -49,9 +49,11 @@
 //     through the warp's slot of shared memory, so each 16-byte store of
 //     the warp writes 512 contiguous bytes (three direct stores at a 48-byte
 //     stride made f32 slower than the previous kernel).
-//   * Other crops (odd ones, e.g. 7) take a general path: 16 bytes of output
-//     per thread, value by value from shared memory, and a group span's head
-//     and tail that are not 16-byte aligned stored value by value.
+//   * Other crops (odd ones, e.g. 7, or CaffeNet's 227: 681 values a row,
+//     rows split 57/57/57/56) take a general path: 16 bytes of output per
+//     thread, value by value from shared memory (int8 from the table), and a
+//     group span's head and tail that are not 16-byte aligned stored value
+//     by value.
 //   * Offsets are clamped into the frame (as lax.dynamic_slice clamps), so
 //     no window reads outside its frame whatever the offsets hold.
 // With the loads, or the converts and stores, left out, each alone takes
@@ -270,10 +272,11 @@ __device__ __forceinline__ void store_group_units(const Params& p, const Group& 
 }
 
 // Convert group g from buf and store its output span, value by value from
-// shared memory: any crop (the general path).
+// shared memory: any crop (the general path).  int8 values come from the
+// block's table, as in the unit path.
 template <typename OutT>
 __device__ __forceinline__ void store_group_general(const Params& p, const Group& g,
-                                            const uint8_t* buf) {
+                                            const uint8_t* buf, const uint8_t* lut) {
   using Bits = typename Out<OutT>::Bits;
   constexpr int kVec = 16 / sizeof(Bits);
   constexpr int kPerWord = 4 / sizeof(Bits);
@@ -289,9 +292,13 @@ __device__ __forceinline__ void store_group_general(const Params& p, const Group
   auto value = [&](int r, int j, int c) -> Bits {
     const unsigned off = (off0 + r * w3lo) & 15u;
     const int col = flip ? span - 3 - j + 2 * c : j;
-    const float mean = c == 0 ? p.mean0 : (c == 1 ? p.mean1 : p.mean2);
-    return Out<OutT>::bits(static_cast<float>(buf[r * p.row_bytes + off + col]) - mean,
-                           p.act_scale);
+    const uint8_t x = buf[r * p.row_bytes + off + col];
+    if constexpr (sizeof(Bits) == 1) {
+      return lut[c * 256 + x];
+    } else {
+      const float mean = c == 0 ? p.mean0 : (c == 1 ? p.mean1 : p.mean2);
+      return Out<OutT>::bits(static_cast<float>(x) - mean, p.act_scale);
+    }
   };
 
   // the span's unaligned head and tail, value by value (out is 16-aligned)
@@ -357,7 +364,7 @@ __global__ void __launch_bounds__(kThreads) crop_normalize_kernel(const Params p
     const Group grp = group_at(p, g);
     const uint8_t* buf = smem + stage * stage_bytes;
     if (!units)
-      store_group_general<OutT>(p, grp, buf);
+      store_group_general<OutT>(p, grp, buf, lut);
     else if (grp.flip)
       store_group_units<OutT, true>(p, grp, buf, lut, warp_stage);
     else

@@ -1,4 +1,5 @@
-"""ReLU, dropout, eltwise and channel concat
+"""ReLU, dropout, eltwise, channel concat, and the pointwise and
+normalizing tail: threshold, BNLL, MVN and LRN
 (twin of ``eco_tpu/ops/elementwise.py``).
 
 ReLU's gradient at exactly 0 is 0 here, as in Caffe's backward; the
@@ -80,3 +81,45 @@ def eltwise(
 def concat_channels(inputs: Sequence[torch.Tensor]) -> torch.Tensor:
     """Caffe Concat(axis=1) == channels-last concat on the final axis."""
     return torch.cat(list(inputs), dim=-1)
+
+
+def threshold(x: torch.Tensor, t: float = 0.0) -> torch.Tensor:
+    """Step function (threshold_layer.cpp): 1 where ``x > t``, else 0; it has
+    no gradient, as Caffe declares no Backward for it."""
+    return (x > t).to(x.dtype)
+
+
+def bnll(x: torch.Tensor) -> torch.Tensor:
+    """Binomial normal log-likelihood (bnll_layer.cpp), ``log(1 + exp(x))``,
+    in the overflow-stable softplus form, computed in f32."""
+    return torch.nn.functional.softplus(x.float()).to(x.dtype)
+
+
+def mvn(x: torch.Tensor, *, across_channels: bool = False,
+        normalize_variance: bool = True, eps: float = 1e-9) -> torch.Tensor:
+    """Mean-variance normalization (mvn_layer.cpp) on a channels-last tensor,
+    per sample over the spatial axes of each channel, or over channels too
+    when ``across_channels``.  As the reference: var = E[x^2] - E[x]^2, and
+    eps is added OUTSIDE the square root, ``(x - mean) / (sqrt(var) + eps)``."""
+    xf = x.float()
+    dims = tuple(range(1, x.ndim - 1)) + ((x.ndim - 1,) if across_channels else ())
+    mean = xf.mean(dim=dims, keepdim=True)
+    y = xf - mean
+    if normalize_variance:
+        var = xf.square().mean(dim=dims, keepdim=True) - mean.square()
+        y = y / (var.sqrt() + eps)
+    return y.to(x.dtype)
+
+
+def lrn(x: torch.Tensor, *, local_size: int = 5, alpha: float = 1.0, beta: float = 0.75,
+        k: float = 1.0) -> torch.Tensor:
+    """Local response normalization ACROSS_CHANNELS (lrn_layer.cpp) over the
+    last (channel) axis: ``x / (k + alpha/n * sum of x^2 over the n channels
+    centred on it)^beta``, the window zero-padded at the ends, in f32.  The
+    window sum is taken over a strided view of the padded squares (the
+    reference takes differences of a running sum)."""
+    xf = x.float()
+    half = local_size // 2
+    sq = torch.nn.functional.pad(xf.square(), (half, half))
+    window = sq.unfold(-1, local_size, 1).sum(dim=-1)
+    return (xf / (k + (alpha / local_size) * window).pow(beta)).to(x.dtype)

@@ -1,4 +1,5 @@
-"""Segment-axis layout transforms on channels-last tensors.
+"""Segment-axis layout transforms on channels-last tensors, the logical /
+physical bridges, and the window view behind im2col.
 
 Twin of ``eco_tpu/ops/layout.py``.  Blobs are ``(N, *spatial, C)`` and
 contiguous, so ``unfold_segments`` is a free reshape: ``(N*S, H, W, C)`` ->
@@ -9,7 +10,12 @@ which is what cuDNN's 3D convolution reads without a copy.
 
 from __future__ import annotations
 
+import itertools
+
 import torch
+import torch.nn.functional as F
+
+from eco_tpu_torch.utils.shapes import normalize_spatial_param
 
 
 def fold_segments(x: torch.Tensor) -> torch.Tensor:
@@ -40,6 +46,47 @@ def to_physical(x: torch.Tensor) -> torch.Tensor:
     if x.ndim < 3:
         return x
     return x.movedim(1, -1).contiguous()
+
+
+def extract_windows(x: torch.Tensor, kernel, stride, outs, dilation=None) -> torch.Tensor:
+    """The window gather shared by :func:`im2col` and
+    ``ops.pool.extract_pool_windows``: one strided slice of the (already
+    padded) ``(N, *spatial, C)`` input per kernel offset, stacked to
+    ``(N, *out, C, K)`` with the offsets in row-major order (Caffe's im2col
+    order).  The callers own the padding and the output dims."""
+    if dilation is None:
+        dilation = (1,) * len(kernel)
+    slices = []
+    for offs in itertools.product(*[range(k) for k in kernel]):
+        idx = (slice(None),) + tuple(
+            slice(o * d, o * d + (out - 1) * s + 1, s)
+            for o, d, out, s in zip(offs, dilation, outs, stride)
+        ) + (slice(None),)
+        slices.append(x[idx])
+    return torch.stack(slices, dim=-1)
+
+
+def im2col(x: torch.Tensor, kernel, stride=1, pad=0, dilation=1) -> torch.Tensor:
+    """Explicit column view (im2col_layer.cpp, util/im2col.cpp).  Caffe's
+    logical output is (N, C*K, *out), column c*K + k_idx with k_idx
+    row-major over the kernel offsets; in the channels-last physical layout
+    that is (N, *out, C*K)."""
+    num_spatial = x.ndim - 2
+    kernel = normalize_spatial_param(kernel, num_spatial)
+    stride = normalize_spatial_param(stride, num_spatial, default=1)
+    pad = normalize_spatial_param(pad, num_spatial, default=0)
+    dilation = normalize_spatial_param(dilation, num_spatial, default=1)
+    if any(pad):
+        flat = [0, 0]  # F.pad lists axes from the last (channels, unpadded)
+        for p in reversed(pad):
+            flat += [p, p]
+        x = F.pad(x, flat)
+    outs = [
+        (size - d * (k - 1) - 1) // s + 1
+        for size, k, s, d in zip(x.shape[1:-1], kernel, stride, dilation)
+    ]
+    cols = extract_windows(x, kernel, stride, outs, dilation)  # (N, *out, C, K)
+    return cols.reshape(cols.shape[:-2] + (-1,))
 
 
 def caffe_reshape_dims(in_shape, dims, axis: int = 0, num_axes: int = -1):

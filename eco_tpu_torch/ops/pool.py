@@ -35,6 +35,7 @@ from eco_tpu_torch.utils.shapes import (
     normalize_spatial_param,
 )
 from eco_tpu_torch.ops import poolfuse
+from eco_tpu_torch.ops.layout import extract_windows
 
 _MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
 
@@ -114,19 +115,12 @@ def pool_nd(
     raise ValueError(f"unknown pool mode {mode!r}")
 
 
-def stochastic_pool(x: torch.Tensor, kernel, stride=1, *, train: bool,
-                    generator: torch.Generator | None = None) -> torch.Tensor:
-    """STOCHASTIC pooling (pooling_layer.cu StoPoolForwardTrain/Test) on a
-    channels-last tensor (twin of ``eco_tpu/ops/pool.py:stochastic_pool``).
-
-    Windows start at ``i * stride`` with no padding; the last ones are
-    clipped at the border, their missing cells zero, which neither mode
-    counts.  TRAIN picks one activation a window with probability
-    proportional to its value, by the Gumbel-max over ``log(x)`` as the
-    reference does, with noise from ``generator`` (its bits are not
-    ``jax.random.gumbel``'s); assumes non-negative inputs (post-ReLU).
-    TEST is the probability-weighted mean ``sum(x^2) / (FLT_MIN + sum(x))``.
-    """
+def extract_pool_windows(x: torch.Tensor, kernel, stride) -> torch.Tensor:
+    """(N, *spatial, C) -> (N, *out, C, K) windows, K = prod(kernel), the
+    offsets in row-major (Caffe im2col) order.  Windows start at
+    ``i * stride`` with no padding, as the reference's stochastic kernels
+    index them; the last ones are clipped at the border, their missing cells
+    zero, which both stochastic modes treat as absent."""
     num_spatial = x.ndim - 2
     kernel = normalize_spatial_param(kernel, num_spatial)
     stride = normalize_spatial_param(stride, num_spatial, default=1)
@@ -136,8 +130,22 @@ def stochastic_pool(x: torch.Tensor, kernel, stride=1, *, train: bool,
     need = [max(0, (o - 1) * s + k - size)
             for o, s, k, size in zip(outs, stride, kernel, spatial)]
     xp = _pad_spatial(x, [(0, n) for n in need], 0.0)
-    # (N, *out, C, K), kernel offsets in row-major (Caffe im2col) order
-    windows = _windows(xp, kernel, stride).flatten(-num_spatial)
+    return extract_windows(xp, kernel, stride, outs)
+
+
+def stochastic_pool(x: torch.Tensor, kernel, stride=1, *, train: bool,
+                    generator: torch.Generator | None = None) -> torch.Tensor:
+    """STOCHASTIC pooling (pooling_layer.cu StoPoolForwardTrain/Test) on a
+    channels-last tensor (twin of ``eco_tpu/ops/pool.py:stochastic_pool``),
+    over the windows of :func:`extract_pool_windows`.
+
+    TRAIN picks one activation a window with probability proportional to its
+    value, by the Gumbel-max over ``log(x)`` as the reference does, with
+    noise from ``generator`` (its bits are not ``jax.random.gumbel``'s);
+    assumes non-negative inputs (post-ReLU).  TEST is the probability-
+    weighted mean ``sum(x^2) / (FLT_MIN + sum(x))``.
+    """
+    windows = extract_pool_windows(x, kernel, stride)  # (N, *out, C, K)
     wf = windows.float()
     if not train:
         num = wf.square().sum(dim=-1)
@@ -151,7 +159,82 @@ def stochastic_pool(x: torch.Tensor, kernel, stride=1, *, train: bool,
     return windows.gather(-1, pick).squeeze(-1).to(x.dtype)
 
 
+def max_pool(x, kernel, stride=1, pad=0):
+    return pool_nd(x, kernel=kernel, stride=stride, pad=pad, mode="max")
+
+
+def avg_pool(x, kernel, stride=1, pad=0):
+    return pool_nd(x, kernel=kernel, stride=stride, pad=pad, mode="ave")
+
+
 def global_avg_pool(x: torch.Tensor, keepdims: bool = False) -> torch.Tensor:
     """Global spatial mean taken in f32 -- the (4,7,7) head pool."""
     dims = tuple(range(1, x.ndim - 1))
     return x.mean(dim=dims, keepdim=keepdims, dtype=torch.float32).to(x.dtype)
+
+
+def _c_round(v: torch.Tensor) -> torch.Tensor:
+    """C's round(): half away from zero (``torch.round`` rounds half to even)."""
+    return torch.sign(v) * torch.floor(v.abs() + 0.5)
+
+
+def _roi_bins(start, size, pooled: int, extent: int):
+    """Each ROI's bin p covers [lo, hi) of an axis of ``extent`` cells:
+    ``lo = floor(p * size / pooled) + start``, ``hi = ceil((p + 1) * size /
+    pooled) + start``, both clipped into the axis; (R, pooled) int64 each."""
+    p = torch.arange(pooled, dtype=torch.float32, device=start.device)
+    # a true division: CUDA divides by a Python scalar as a multiply by its
+    # reciprocal, which can land an ulp off a whole bin edge
+    bin_size = (size / torch.full((), pooled, dtype=torch.float32, device=start.device))[:, None]
+    lo = (torch.floor(p * bin_size) + start[:, None]).clamp(0, extent)
+    hi = (torch.ceil((p + 1) * bin_size) + start[:, None]).clamp(0, extent)
+    return lo.long(), hi.long()
+
+
+def _widest(lo: torch.Tensor, hi: torch.Tensor) -> int:
+    return int((hi - lo).max().clamp_min(1))
+
+
+def roi_max_pool(x: torch.Tensor, rois: torch.Tensor, *, pooled_h: int, pooled_w: int,
+                 spatial_scale: float = 1.0) -> torch.Tensor:
+    """Fast R-CNN ROI max pooling (roi_pooling_layer.cpp:28-130; twin of
+    ``eco_tpu/ops/pool.py:roi_max_pool``).
+
+    ``x``: (N, H, W, C) channels-last; ``rois``: (R, 5) rows ``[batch_index,
+    x1, y1, x2, y2]`` in input-image coordinates, scaled by
+    ``spatial_scale`` and rounded half away from zero.  Each ROI is split
+    into ``pooled_h x pooled_w`` bins from floor/ceil (see ``_roi_bins``)
+    and max-pooled; an empty bin gives 0.  Returns (R, pooled_h, pooled_w,
+    C) in ``x``'s type, the max taken in f32.
+
+    The reference masks the whole map for every bin, an (R, pooled_h, H,
+    W, C) intermediate.  Here each bin's rows are gathered from its ROI's
+    image cell by cell and reduced, (R, pooled_h, W, C), then each bin's
+    columns of that, (R, pooled_h, pooled_w, C): as many gathers a pass as
+    the widest bin has cells, each the size of the pass's output.  Counting
+    them reads the bins' extents back to the host: one stream sync a call.
+    Ties share the gradient evenly (``amax``), as the reference's ``max``.
+    """
+    n, h, w, c = x.shape
+    if x.is_meta:  # shape propagation (Program.init): no extents to read
+        return x.new_empty((rois.shape[0], pooled_h, pooled_w, c))
+    rf = rois.float()
+    start_w, start_h = _c_round(rf[:, 1] * spatial_scale), _c_round(rf[:, 2] * spatial_scale)
+    end_w, end_h = _c_round(rf[:, 3] * spatial_scale), _c_round(rf[:, 4] * spatial_scale)
+    roi_h = (end_h - start_h + 1.0).clamp_min(1.0)
+    roi_w = (end_w - start_w + 1.0).clamp_min(1.0)
+    lo_h, hi_h = _roi_bins(start_h, roi_h, pooled_h, h)
+    lo_w, hi_w = _roi_bins(start_w, roi_w, pooled_w, w)
+    batch = rois[:, 0].long()[:, None]
+    picks = []
+    for o in range(_widest(lo_h, hi_h)):
+        cells = x[batch, (lo_h + o).clamp_max(h - 1)].float()        # (R, PH, W, C)
+        picks.append(torch.where((lo_h + o < hi_h)[..., None, None], cells, float("-inf")))
+    rows = torch.stack(picks).amax(dim=0)
+    picks = []
+    r = torch.arange(len(rois), device=x.device)[:, None]
+    for o in range(_widest(lo_w, hi_w)):
+        cells = rows[r, :, (lo_w + o).clamp_max(w - 1)].transpose(1, 2)  # (R, PH, PW, C)
+        picks.append(torch.where((lo_w + o < hi_w)[:, None, :, None], cells, float("-inf")))
+    out = torch.stack(picks).amax(dim=0)
+    return torch.where(torch.isfinite(out), out, 0.0).to(x.dtype)

@@ -15,9 +15,12 @@ The program is functional: ``apply`` writes nothing into ``params`` or
 the train step's gradient.
 
 Blobs keep the reference's physical layout, channels-last ``(N, *spatial,
-C)`` and contiguous for rank >= 3, ``(N, D)`` for matrices.  Params are in
-PyTorch's layout: conv ``w`` is ``(C_out, C_in/g, *k)``, fc ``w`` is
-``(D_out, D_in)`` (``eco_tpu_torch.convert.bridge`` converts).  The int8
+C)`` and contiguous for rank >= 3, ``(N, D)`` for matrices; a layer whose
+options name a logical Caffe axis (Permute, Reduction, Bias, BatchReduction,
+a generic Concat or Slice) goes through ``ops.to_logical`` and back.  Params
+are in PyTorch's layout: conv ``w`` is ``(C_out, C_in/g, *k)``, deconv ``w``
+``(C_in, C_out/g, *k)``, fc ``w`` ``(D_out, D_in)``
+(``eco_tpu_torch.convert.bridge`` converts).  The int8
 layers of a quantized graph (``convert/quantize.py``) keep int8 weights in
 the same shapes, conv weights in ``ops.qconv.kernel_layout`` memory order.
 """
@@ -30,6 +33,7 @@ import zlib
 from dataclasses import dataclass, field
 from typing import Any, Mapping, Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -50,13 +54,16 @@ DATA_LAYER_TYPES = {
 @dataclass
 class Context:
     """What one ``apply`` hands every layer: the phase, the step's random
-    seed, the compute type (None keeps the input's), and the BN statistics
-    that train mode updates."""
+    seed, the compute type (None keeps the input's), the BN statistics that
+    train mode updates, and the program's device (where a layer with no
+    bottoms, DummyData, makes its tops; ``meta`` while ``init`` propagates
+    shapes)."""
 
     train: bool = False
     seed: Optional[int] = None
     compute_dtype: Optional[torch.dtype] = None
     new_state: dict = field(default_factory=dict)
+    device: Any = "cuda"
 
     def layer_generator(self, layer_name: str, device) -> Optional[torch.Generator]:
         """A generator on ``device`` for this layer and step: the step's seed
@@ -72,7 +79,8 @@ class LayerImpl:
     """One graph-layer type: param/state declaration + apply.
 
     ``param_specs`` maps name -> (shape, filler), f32, or (shape, filler,
-    dtype); ``state_specs`` maps name -> (shape, fill value), f32.
+    dtype); ``state_specs`` maps name -> (shape, fill value), f32, where the
+    value is a number or an array of that shape.
     """
 
     def param_specs(self, spec: LayerSpec, in_shapes) -> dict:
@@ -85,7 +93,15 @@ class LayerImpl:
         raise NotImplementedError
 
 
+def _transposed(spec) -> bool:
+    """Deconvolution goes by the layer's type (deconv_layer.cpp), as in the
+    reference; the ``transposed`` option overrides it for hand-built specs."""
+    return spec.type == "deconvolution" or bool(spec.opt("transposed", False))
+
+
 class _Conv(LayerImpl):
+    """Convolution and Deconvolution (base_conv_layer.cpp)."""
+
     def param_specs(self, spec, in_shapes):
         in_shape = in_shapes[0]
         k = spec.opt("kernel_size")
@@ -94,10 +110,11 @@ class _Conv(LayerImpl):
         kernel = normalize_spatial_param(k, len(in_shape) - 2)
         cout = int(spec.opt("num_output"))
         groups = int(spec.opt("group", 1))
-        out = {
-            "w": ((cout, in_shape[-1] // groups) + tuple(kernel),
-                  spec.opt("weight_filler", {"type": "xavier"})),
-        }
+        if _transposed(spec):
+            wshape = (in_shape[-1], cout // groups) + tuple(kernel)
+        else:
+            wshape = (cout, in_shape[-1] // groups) + tuple(kernel)
+        out = {"w": (wshape, spec.opt("weight_filler", {"type": "xavier"}))}
         if spec.opt("bias_term", True):
             out["b"] = ((cout,), spec.opt("bias_filler", {"type": "constant"}))
         return out
@@ -107,6 +124,7 @@ class _Conv(LayerImpl):
             inputs[0], params["w"], params.get("b"),
             stride=spec.opt("stride", 1), pad=spec.opt("pad", 0),
             dilation=spec.opt("dilation", 1), groups=int(spec.opt("group", 1)),
+            transposed=_transposed(spec),
         )]
 
 
@@ -421,6 +439,440 @@ class _Identity(LayerImpl):
         return [inputs[0]]
 
 
+# --------------------------------------------------------------------------
+# The rest of Caffe's layer catalogue (eco_tpu/runtime/executor.py:385-1137)
+# --------------------------------------------------------------------------
+
+
+class _Permute(LayerImpl):
+    def apply(self, spec, params, state, inputs, ctx):
+        x = ops.to_logical(inputs[0])
+        return [ops.to_physical(x.permute(*(int(i) for i in spec.opt("order"))))]
+
+
+class _Power(LayerImpl):
+    """y = (shift + scale * x)^power (power_layer.cpp)."""
+
+    def apply(self, spec, params, state, inputs, ctx):
+        a = float(spec.opt("power", 1.0))
+        y = float(spec.opt("scale", 1.0)) * inputs[0] + float(spec.opt("shift", 0.0))
+        return [y.pow(a) if a != 1.0 else y]
+
+
+class _Sink(LayerImpl):
+    """Silence, and HDF5Output in a graph (hdf5_output_layer.cpp): consume
+    the bottoms, make no tops.  The file write is the host's
+    (``data.hdf5.save_hdf5`` on captured blobs), as in the reference."""
+
+    def apply(self, spec, params, state, inputs, ctx):
+        return []
+
+
+class _Pointwise(LayerImpl):
+    def __init__(self, fn):
+        self.fn = fn
+
+    def apply(self, spec, params, state, inputs, ctx):
+        return [self.fn(inputs[0])]
+
+
+class _Exp(LayerImpl):
+    """y = base^(shift + scale * x), e when base is -1 (exp_layer.cpp), in f32."""
+
+    def apply(self, spec, params, state, inputs, ctx):
+        base = float(spec.opt("base", -1.0))
+        y = float(spec.opt("scale", 1.0)) * inputs[0].float() + float(spec.opt("shift", 0.0))
+        out = torch.exp(y) if base == -1.0 else torch.pow(base, y)
+        return [out.to(inputs[0].dtype)]
+
+
+class _Log(LayerImpl):
+    """y = log_base(shift + scale * x), e when base is -1 (log_layer.cpp), in f32."""
+
+    def apply(self, spec, params, state, inputs, ctx):
+        base = float(spec.opt("base", -1.0))
+        y = torch.log(float(spec.opt("shift", 0.0))
+                      + float(spec.opt("scale", 1.0)) * inputs[0].float())
+        if base > 0:
+            y = y / math.log(base)
+        return [y.to(inputs[0].dtype)]
+
+
+class _Threshold(LayerImpl):
+    def apply(self, spec, params, state, inputs, ctx):
+        return [ops.threshold(inputs[0], float(spec.opt("threshold", 0.0)))]
+
+
+class _ArgMax(LayerImpl):
+    """The index of the largest value on the last (channel) axis, as f32."""
+
+    def apply(self, spec, params, state, inputs, ctx):
+        return [inputs[0].argmax(dim=-1).float()]
+
+
+class _LRN(LayerImpl):
+    def apply(self, spec, params, state, inputs, ctx):
+        return [ops.lrn(
+            inputs[0], local_size=int(spec.opt("local_size", 5)),
+            alpha=float(spec.opt("alpha", 1.0)), beta=float(spec.opt("beta", 0.75)),
+            k=float(spec.opt("k", 1.0)),
+        )]
+
+
+class _MVN(LayerImpl):
+    def apply(self, spec, params, state, inputs, ctx):
+        return [ops.mvn(
+            inputs[0], across_channels=bool(spec.opt("across_channels", False)),
+            normalize_variance=bool(spec.opt("normalize_variance", True)),
+            eps=float(spec.opt("eps", 1e-9)),
+        )]
+
+
+class _PReLU(LayerImpl):
+    """Parametric ReLU (prelu_layer.cpp): a learned negative slope per
+    channel, or one for all with ``channel_shared``; filler default 0.25.
+    The input's gradient at exactly 0 is the slope, as in Caffe's backward
+    (the reference's max/min form gives the mean of 1 and the slope)."""
+
+    def param_specs(self, spec, in_shapes):
+        c = 1 if spec.opt("channel_shared", False) else in_shapes[0][-1]
+        return {"slope": ((c,), spec.opt("filler", {"type": "constant", "value": 0.25}))}
+
+    def apply(self, spec, params, state, inputs, ctx):
+        x = inputs[0]
+        return [torch.where(x > 0, x, params["slope"].to(x.dtype) * x)]
+
+
+class _BatchNormCaffe(LayerImpl):
+    """Caffe's BatchNorm layer (batch_norm_layer.cpp): the statistics are
+    state, scale and shift are a separate Scale layer's.  It is the BN
+    layer's math with gamma 1 and beta 0: batch moments and a running update
+    at ``moving_average_fraction`` in train mode unless
+    ``use_global_stats``, the running statistics otherwise."""
+
+    def state_specs(self, spec, in_shapes):
+        c = in_shapes[0][-1]
+        return {"mean": ((c,), 0.0), "var": ((c,), 1.0)}
+
+    def apply(self, spec, params, state, inputs, ctx):
+        x = inputs[0]
+        ones = torch.ones(x.shape[-1], device=x.device)
+        zeros = torch.zeros(x.shape[-1], device=x.device)
+        eps = float(spec.opt("eps", 1e-5))
+        if ctx.train and not bool(spec.opt("use_global_stats")):
+            y, mean, var = ops.bn_train(
+                x, ones, zeros, state["mean"], state["var"], eps=eps,
+                momentum=float(spec.opt("moving_average_fraction", 0.999)),
+            )
+            ctx.new_state[spec.name] = {"mean": mean, "var": var}
+            return [y]
+        return [ops.bn_inference(x, ones, zeros, state["mean"], state["var"], eps=eps)]
+
+
+class _Bias(LayerImpl):
+    """Bias (bias_layer.cpp): add a bias broadcast from logical ``axis`` over
+    ``num_axes`` axes; the bias is the second bottom when there is one, else
+    a learned param (filler default 0)."""
+
+    @staticmethod
+    def _bias_shape(spec, in_shape):
+        logical = ((in_shape[0], in_shape[-1]) + tuple(in_shape[1:-1])
+                   if len(in_shape) >= 3 else tuple(in_shape))
+        axis = int(spec.opt("axis", 1)) % len(logical)
+        num_axes = int(spec.opt("num_axes", 1))
+        return logical[axis:] if num_axes == -1 else logical[axis:axis + num_axes]
+
+    def param_specs(self, spec, in_shapes):
+        if len(in_shapes) > 1:
+            return {}
+        return {"bias": (self._bias_shape(spec, in_shapes[0]),
+                         spec.opt("filler", {"type": "constant", "value": 0.0}))}
+
+    def apply(self, spec, params, state, inputs, ctx):
+        x = ops.to_logical(inputs[0])
+        axis = int(spec.opt("axis", 1)) % x.ndim
+        b = ops.to_logical(inputs[1]) if len(inputs) > 1 else params["bias"]
+        b = b.reshape((1,) * axis + tuple(b.shape) + (1,) * (x.ndim - axis - b.ndim))
+        return [ops.to_physical(x + b.to(x.dtype))]
+
+
+class _Loss(LayerImpl):
+    """A loss with no options beyond its bottoms: ``fn(*bottoms)``."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def apply(self, spec, params, state, inputs, ctx):
+        return [self.fn(*inputs)]
+
+
+class _HingeLoss(LayerImpl):
+    def apply(self, spec, params, state, inputs, ctx):
+        return [ops.hinge_loss(inputs[0], inputs[1], norm=str(spec.opt("norm", "L1")))]
+
+
+class _InfogainLoss(LayerImpl):
+    """Infogain loss (infogain_loss_layer.cpp); H is the third bottom, or
+    ``infogain_param { source }`` (a serialized BlobProto) read into the
+    layer's state at ``init``."""
+
+    def state_specs(self, spec, in_shapes):
+        if len(in_shapes) >= 3:
+            return {}
+        src = spec.opt("source")
+        if src is None:
+            raise ValueError(f"InfogainLoss {spec.name!r} needs a third bottom or "
+                             "infogain_param.source")
+        from eco_tpu_torch.convert.caffemodel import load_blobproto
+
+        c = in_shapes[0][-1]
+        return {"H": ((c, c), np.asarray(load_blobproto(src), np.float32).reshape(c, c))}
+
+    def apply(self, spec, params, state, inputs, ctx):
+        h = inputs[2] if len(inputs) >= 3 else state["H"]
+        return [ops.infogain_loss(inputs[0], inputs[1], h)]
+
+
+class _ContrastiveLoss(LayerImpl):
+    def apply(self, spec, params, state, inputs, ctx):
+        return [ops.contrastive_loss(
+            *inputs[:3], margin=float(spec.opt("margin", 1.0)),
+            legacy=bool(spec.opt("legacy_version", False)),
+        )]
+
+
+class _Reduction(LayerImpl):
+    """Reduction (reduction_layer.cpp): SUM / ASUM / SUMSQ / MEAN of every
+    logical axis from ``axis`` on, times ``coeff``, in f32."""
+
+    _OPS = {"sum": lambda x, d: x.sum(dim=d), "asum": lambda x, d: x.abs().sum(dim=d),
+            "sumsq": lambda x, d: x.square().sum(dim=d), "mean": lambda x, d: x.mean(dim=d)}
+    _CODES = {"1": "sum", "2": "asum", "3": "sumsq", "4": "mean"}  # the enum's numbers
+
+    def apply(self, spec, params, state, inputs, ctx):
+        x = ops.to_logical(inputs[0]).float()
+        axis = int(spec.opt("axis", 0)) % x.ndim
+        op = str(spec.opt("operation", "sum")).lower()
+        op = self._CODES.get(op, op)
+        if op not in self._OPS:
+            raise ValueError(f"unknown reduction operation {op!r}")
+        y = float(spec.opt("coeff", 1.0)) * self._OPS[op](x, tuple(range(axis, x.ndim)))
+        return [ops.to_physical(y.to(inputs[0].dtype))]
+
+
+class _Normalize(LayerImpl):
+    """Per-sample L2 normalization over every non-batch axis
+    (normalize_layer.cpp:21-33), in f32."""
+
+    def apply(self, spec, params, state, inputs, ctx):
+        x = inputs[0].float()
+        norm = x.square().sum(dim=tuple(range(1, x.ndim)), keepdim=True).sqrt()
+        return [(x / norm).to(inputs[0].dtype)]
+
+
+class _BatchReduction(LayerImpl):
+    """The TSN fork's BatchReduction (batch_reduction_layer.cpp): reduce
+    logical ``axis`` blockwise, in f32.
+
+    - ``level`` [l1, l2, ...] splits the axis into blocks of l_i^2, each
+      summed (or averaged), and a len(levels) axis takes its place; [1] (the
+      default) reduces the whole axis with no new one (:54-63);
+    - TOPK (one level): the mean of the k largest along the axis (:153-168);
+    - ``pos`` (one level): the sum over the diagonal of (axis, axis+1)
+      (:125-129).
+    ASUM and SUMSQ raise, as the reference declares them NOT_IMPLEMENTED.
+    """
+
+    def apply(self, spec, params, state, inputs, ctx):
+        rp = spec.opt("reduction_param", {}) or {}
+        op = str(rp.get("operation", "sum")).lower()
+        levels = spec.opt("level", [1])
+        if isinstance(levels, (int, float)):
+            levels = [int(levels)]
+        levels = [int(l) for l in levels] or [1]
+        x = ops.to_logical(inputs[0])
+        axis = int(rp.get("axis", 0)) % x.ndim
+        xf = x.float()
+        mean = op in ("mean", "4")
+        if op in ("asum", "2", "sumsq", "3"):
+            raise NotImplementedError(
+                f"batch_reduction operation {op!r} is NOT_IMPLEMENTED in the reference too "
+                "(batch_reduction_layer.cpp)")
+        if bool(spec.opt("pos", False)):
+            if len(levels) != 1:
+                raise ValueError("pos-sensitive reduction needs one level")
+            if axis + 1 >= x.ndim:
+                raise ValueError(f"pos mode reduces axes ({axis}, {axis + 1}) but the input "
+                                 f"has only {x.ndim} logical dims")
+            tick = x.shape[axis]
+            if x.shape[axis + 1] != tick:
+                raise ValueError(f"pos mode needs square (axis, axis+1) dims, got "
+                                 f"{x.shape[axis]}x{x.shape[axis + 1]}")
+            y = torch.diagonal(xf, dim1=axis, dim2=axis + 1).sum(dim=-1)
+            if mean:
+                y = y / tick
+            if levels != [1]:
+                y = y.unsqueeze(axis)
+            return [ops.to_physical(y.to(x.dtype))]
+        if op in ("topk", "5"):
+            if len(levels) != 1:
+                raise ValueError("top-k reduction works with one level")
+            k = int(rp.get("k", 1))
+            y = xf.movedim(axis, -1).topk(k, dim=-1).values.mean(dim=-1)
+            return [ops.to_physical(y.to(x.dtype))]
+        if levels == [1]:
+            y = xf.sum(dim=axis)
+            return [ops.to_physical((y / x.shape[axis] if mean else y).to(x.dtype))]
+        ticks = [l * l for l in levels]
+        if sum(ticks) != x.shape[axis]:
+            raise ValueError(f"levels {levels} (ticks {ticks}) do not cover axis size "
+                             f"{x.shape[axis]}")
+        pieces = [blk.sum(dim=axis) / (tick if mean else 1)
+                  for blk, tick in zip(torch.split(xf, ticks, dim=axis), ticks)]
+        return [ops.to_physical(torch.stack(pieces, dim=axis).to(x.dtype))]
+
+
+class _SPP(LayerImpl):
+    """Spatial pyramid pooling (spp_layer.cpp): level l pools a 2^l x 2^l
+    grid with kernel ceil(dim / bins), pad (kernel * bins - dim + 1) / 2 and
+    stride = kernel; each level flattens to (N, C * bins^2) in logical order
+    and the levels are concatenated.  Pyramid height 1 is one global pool,
+    not flattened (:132-139)."""
+
+    def apply(self, spec, params, state, inputs, ctx):
+        x = inputs[0]
+        height = int(spec.opt("pyramid_height", 1))
+        mode = str(spec.opt("pool", "max")).lower()
+        if x.ndim != 4:
+            raise ValueError("SPP expects a (N, H, W, C) input")
+        n, h, w, _ = x.shape
+        if height == 1:
+            return [ops.pool_nd(x, global_pooling=True, mode=mode)]
+        flats = []
+        for level in range(height):
+            bins = 2 ** level
+            kh, kw = -(-h // bins), -(-w // bins)
+            ph, pw = (kh * bins - h + 1) // 2, (kw * bins - w + 1) // 2
+            if ph >= kh or pw >= kw:
+                # Caffe's PoolingLayer CHECKs pad < kernel; past it the grid
+                # and so the concat's length would change
+                raise ValueError(f"SPP level {level}: {bins}x{bins} bins exceed the {h}x{w} "
+                                 "feature map (pad >= kernel, the reference aborts here too)")
+            y = ops.pool_nd(x, kernel=(kh, kw), stride=(kh, kw), pad=(ph, pw), mode=mode)
+            flats.append(ops.to_logical(y).reshape(n, -1))
+        return [torch.cat(flats, dim=1)]
+
+
+class _ROIPooling(LayerImpl):
+    """Fast R-CNN ROI max pooling (``ops.roi_max_pool``): (R, pooled_h,
+    pooled_w, C), physical channels-last."""
+
+    def apply(self, spec, params, state, inputs, ctx):
+        ph, pw = int(spec.opt("pooled_h", 0)), int(spec.opt("pooled_w", 0))
+        if ph <= 0 or pw <= 0:
+            # roi_pooling_layer.cpp:23-26 CHECK_GT(pooled_h/w, 0)
+            raise ValueError(f"ROIPooling {spec.name!r} needs pooled_h/pooled_w > 0 "
+                             f"(got {ph}x{pw})")
+        return [ops.roi_max_pool(inputs[0], inputs[1], pooled_h=ph, pooled_w=pw,
+                                 spatial_scale=float(spec.opt("spatial_scale", 1.0)))]
+
+
+class _Filter(LayerImpl):
+    """Filter (filter_layer.cpp): the batch items whose selector (the last
+    bottom) is non-zero, in order, one top per data bottom.  Its output's
+    size depends on the data; the reference compiles under static shapes
+    and so takes the layer only with ``capacity``, as a fixed-size
+    compaction: the selected rows first, in order, then zero rows up to
+    ``capacity`` (selected rows past it dropped), and, with one top more
+    than data bottoms, the (capacity,) bool mask of valid rows.  This port
+    keeps that contract: without ``capacity`` it raises."""
+
+    def apply(self, spec, params, state, inputs, ctx):
+        cap = spec.opt("capacity")
+        if cap is None:
+            raise NotImplementedError(
+                "Filter has a data-dependent output shape (rows whose selector is "
+                "non-zero), which cannot compile under XLA's static shapes in the "
+                "reference; set options['capacity'] for the fixed-size gather variant, "
+                "or use masking (PARITY.md)")
+        cap = int(cap)
+        *data, sel = inputs
+        keep = sel.reshape(sel.shape[0]) != 0
+        n = keep.shape[0]
+        pos = torch.cumsum(keep.long(), 0) - 1
+        # idx[j]: the input row that lands at output j, n (a zero row) if none;
+        # rows kept past the capacity land in slot cap, which is cut off
+        idx = torch.full((cap + 1,), n, dtype=torch.long, device=keep.device)
+        slot = torch.where(keep & (pos < cap), pos, torch.full_like(pos, cap))
+        idx = idx.scatter(0, slot, torch.arange(n, device=keep.device))[:cap]
+        outs = [torch.cat([d, d.new_zeros((1,) + tuple(d.shape[1:]))])[idx] for d in data]
+        if len(spec.tops) == len(data) + 1:
+            outs.append(idx < n)
+        return outs
+
+
+class _Im2col(LayerImpl):
+    def apply(self, spec, params, state, inputs, ctx):
+        k = spec.opt("kernel_size")
+        if k is None and spec.opt("kernel_h") is not None:
+            k = (int(spec.opt("kernel_h")), int(spec.opt("kernel_w")))
+        return [ops.im2col(inputs[0], k, stride=spec.opt("stride", 1), pad=spec.opt("pad", 0),
+                           dilation=spec.opt("dilation", 1))]
+
+
+class _DummyData(LayerImpl):
+    """DummyData (dummy_data_layer.cpp): a layer with tops and no bottoms,
+    one top per declared shape (logical NCHW, made physical), filled by its
+    ``data_filler`` (one for all tops, or one each) on the program's device.
+    Gaussian and uniform draws come from a generator of the layer and top
+    (the step's seed, or 0, mixed with the crc32 of the name), so they do
+    not reproduce ``jax.random``'s bits."""
+
+    @staticmethod
+    def _shapes(spec):
+        shapes = spec.opt("shape", [])
+        if isinstance(shapes, dict):
+            shapes = [shapes]
+        dims = [tuple(int(d) for d in (s.get("dim") if isinstance(s, dict) else s))
+                for s in shapes]
+        if not dims and spec.opt("num") is not None:
+            # legacy num/channels/height/width quadruples
+            def each(v, n):
+                return v if isinstance(v, list) else [v] * n
+
+            nums = each(spec.opt("num"), 1)
+            dims = [tuple(int(v) for v in q) for q in zip(
+                nums, each(spec.opt("channels", 1), len(nums)),
+                each(spec.opt("height", 1), len(nums)), each(spec.opt("width", 1), len(nums)))]
+        if not dims:
+            raise ValueError(f"DummyData {spec.name!r} declares no shape")
+        return [(d[0],) + d[2:] + (d[1],) if len(d) >= 3 else d for d in dims]
+
+    def apply(self, spec, params, state, inputs, ctx):
+        fillers = spec.opt("data_filler", [{"type": "constant", "value": 0.0}])
+        if isinstance(fillers, dict):
+            fillers = [fillers]
+        shapes = self._shapes(spec)
+        if len(fillers) == 1:
+            fillers = fillers * len(shapes)
+        elif len(fillers) != len(shapes):
+            # dummy_data_layer.cpp CHECKs 1-or-N fillers
+            raise ValueError(f"DummyData {spec.name!r}: {len(fillers)} data_fillers for "
+                             f"{len(shapes)} shapes (need 1 or exactly one per shape)")
+        device = torch.device(ctx.device)
+        outs = []
+        for i, (shape, f) in enumerate(zip(shapes, fillers)):
+            if device.type == "meta":
+                outs.append(torch.empty(shape, device=device))
+                continue
+            if str(f.get("type", "constant")).lower() not in ("constant", "gaussian", "uniform"):
+                raise ValueError(f"DummyData filler {f.get('type')!r} unsupported")
+            seed = (ctx.seed or 0) ^ zlib.crc32(f"{spec.name}/{i}".encode())
+            gen = torch.Generator(device=device).manual_seed(seed)
+            outs.append(fill(gen, shape, torch.float32, f))
+        return outs
+
+
 IMPLS: dict[str, LayerImpl] = {
     "convolution": _Conv(),
     "innerproduct": _InnerProduct(),
@@ -445,6 +897,45 @@ IMPLS: dict[str, LayerImpl] = {
     "accuracy": _Accuracy(),
     "split": _Split(),
     "identity": _Identity(),
+    # the rest of Caffe's catalogue, in the reference's groups
+    "deconvolution": _Conv(),
+    "permute": _Permute(),
+    "power": _Power(),
+    "silence": _Sink(),
+    "bias": _Bias(),
+    # the entry and exit of a model-parallel section (gather_layer.cpp,
+    # scatter_layer.cpp): the identity on one device, as in the reference
+    # outside a mesh
+    "gather": _Identity(),
+    "scatter": _Identity(),
+    "sigmoid": _Pointwise(torch.sigmoid),
+    "tanh": _Pointwise(torch.tanh),
+    "absval": _Pointwise(torch.abs),
+    "exp": _Exp(),
+    "log": _Log(),
+    "bnll": _Pointwise(ops.bnll),
+    "threshold": _Threshold(),
+    "argmax": _ArgMax(),
+    "lrn": _LRN(),
+    "mvn": _MVN(),
+    "prelu": _PReLU(),
+    "batchnorm": _BatchNormCaffe(),
+    "euclideanloss": _Loss(ops.euclidean_loss),
+    "hingeloss": _HingeLoss(),
+    "sigmoidcrossentropyloss": _Loss(ops.sigmoid_cross_entropy),
+    "infogainloss": _InfogainLoss(),
+    "contrastiveloss": _ContrastiveLoss(),
+    "multinomiallogisticloss": _Loss(ops.multinomial_logistic_loss),
+    "smoothl1loss": _Loss(ops.smooth_l1_loss),
+    "spp": _SPP(),
+    "roipooling": _ROIPooling(),
+    "filter": _Filter(),
+    "im2col": _Im2col(),
+    "reduction": _Reduction(),
+    "normalize": _Normalize(),
+    "batchreduction": _BatchReduction(),
+    "dummydata": _DummyData(),
+    "hdf5output": _Sink(),
 }
 
 
@@ -522,7 +1013,7 @@ class Program(nn.Module):
         }
         params: dict = {}
         state: dict = {}
-        ctx = Context(train=False, compute_dtype=self.compute_dtype)
+        ctx = Context(train=False, compute_dtype=self.compute_dtype, device="meta")
         shared_owner: dict[str, torch.Tensor] = {}
         for layer, impl in zip(self.exec_layers, self._impls):
             ins = [blobs[b] for b in layer.bottoms]
@@ -541,13 +1032,15 @@ class Program(nn.Module):
                     aliased[name] = owner
                     continue
                 dtype = dtype[0] if dtype else torch.float32
-                lp[name] = fill(generator, shape, dtype, filler).to(self.device)
+                lp[name] = fill(generator, shape, dtype, filler,
+                                transposed=name == "w" and _transposed(layer)).to(self.device)
                 if dtype == torch.int8 and len(shape) > 2:
                     lp[name] = kernel_layout(lp[name])  # K3's int8 conv weights
                 if sname is not None:
                     shared_owner[sname] = lp[name]
             ls = {
-                name: torch.full(shape, value, dtype=torch.float32, device=self.device)
+                name: torch.as_tensor(value, dtype=torch.float32).to(self.device).expand(
+                    shape).clone()
                 for name, (shape, value) in impl.state_specs(layer, in_shapes).items()
             }
             if lp:
@@ -583,7 +1076,8 @@ class Program(nn.Module):
         if generator is not None:
             seed = int(torch.randint(0, 2**62, (1,), generator=generator,
                                      device=generator.device).item())
-        ctx = Context(train=self.train, seed=seed, compute_dtype=self.compute_dtype)
+        ctx = Context(train=self.train, seed=seed, compute_dtype=self.compute_dtype,
+                      device=self.device)
         blobs: dict[str, torch.Tensor] = {}
         for k, v in inputs.items():
             v = torch.as_tensor(v).to(self.device, non_blocking=True)

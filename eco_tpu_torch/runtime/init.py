@@ -20,18 +20,24 @@ from typing import Mapping
 import torch
 
 
-def _fans(shape):
+def _fans(shape, transposed: bool = False):
     """fan_in / fan_out of a param in this package's layout: conv
-    (C_out, C_in/g, *k), fc (D_out, D_in).  Equal to the reference's
-    ``_fans`` of the same param in its layout ((*k, C_in/g, C_out), (D_in, D_out))."""
+    (C_out, C_in/g, *k), fc (D_out, D_in), and with ``transposed`` a deconv
+    weight (C_in, C_out/g, *k).  Equal to the reference's ``_fans`` of the
+    same param in its layout ((*k, C_in/g, C_out), (D_in, D_out),
+    (*k, C_in, C_out/g)), which reads the last two axes as (in, out)."""
     if len(shape) == 1:
         return shape[0], shape[0]
     receptive = math.prod(shape[2:])
+    if transposed:
+        return shape[0] * receptive, shape[1] * receptive
     return shape[1] * receptive, shape[0] * receptive
 
 
-def fill(generator: torch.Generator, shape, dtype, filler: Mapping | None) -> torch.Tensor:
-    """A new tensor on ``generator.device`` filled as ``filler`` says."""
+def fill(generator: torch.Generator, shape, dtype, filler: Mapping | None, *,
+         transposed: bool = False) -> torch.Tensor:
+    """A new tensor on ``generator.device`` filled as ``filler`` says;
+    ``transposed`` marks a deconv weight for the fans of xavier and msra."""
     filler = dict(filler or {"type": "constant", "value": 0.0})
     ftype = filler.get("type", "constant")
     t = torch.empty(tuple(shape), dtype=dtype, device=generator.device)
@@ -45,7 +51,7 @@ def fill(generator: torch.Generator, shape, dtype, filler: Mapping | None) -> to
         mean = float(filler.get("mean", 0.0))
         std = float(filler.get("std", 1.0))
         return t.normal_(mean, std, generator=generator)
-    fan_in, fan_out = _fans(tuple(shape))
+    fan_in, fan_out = _fans(tuple(shape), transposed)
     norm = filler.get("variance_norm", "FAN_IN")
     if norm == "AVERAGE":
         n = (fan_in + fan_out) / 2.0

@@ -17,7 +17,8 @@ reentrant) instead recomputes a checkpointed region in one go at the first
 unpack of one of its saved tensors, so everything the region saved is live
 at once: one checkpoint around a whole forward pass would save almost
 nothing.  So the executor's layer list is cut into regions that each end
-at a Convolution or InnerProduct layer, and each region is checkpointed
+at a Convolution, Deconvolution or InnerProduct layer (a deconvolution is
+``aten.convolution`` too), and each region is checkpointed
 alone; the backward pass then holds one region's recompute at a time.
 
 What each region keeps for the backward pass:
@@ -61,7 +62,7 @@ from torch.utils.checkpoint import (
 POLICIES = ("nothing", "dots", "everything")
 
 # layer types that close a region: their outputs are what "dots" keeps
-_REGION_ENDS = {"convolution", "innerproduct"}
+_REGION_ENDS = {"convolution", "deconvolution", "innerproduct"}
 
 _aten = torch.ops.aten
 _DOTS = {_aten.convolution.default, _aten._convolution.default, _aten.mm.default,
@@ -106,7 +107,8 @@ def remat_policy_from_graph(graph) -> Optional[str]:
 
 
 def regions(layers: Sequence) -> list[list[int]]:
-    """Indices of ``layers`` cut after every Convolution / InnerProduct."""
+    """Indices of ``layers`` cut after every Convolution / Deconvolution /
+    InnerProduct."""
     out, cur = [], []
     for i, layer in enumerate(layers):
         cur.append(i)

@@ -44,7 +44,8 @@ HBM_BYTES_PER_S = 3.35e12
 def _context(program, seed):
     if seed is None and program.train:
         seed = 0  # dropout and stochastic layers need a seed in train mode
-    return Context(train=program.train, seed=seed, compute_dtype=program.compute_dtype)
+    return Context(train=program.train, seed=seed, compute_dtype=program.compute_dtype,
+                   device=program.device)
 
 
 def _inputs(program, inputs):

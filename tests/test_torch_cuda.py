@@ -100,6 +100,21 @@ def test_kernel_equals_plain_version_over_a_grid(cuda, crop, dtype, act_scale, m
     assert torch.equal(got, preprocess.crop_normalize_reference(frames, h_off, w_off, flags, **kw))
 
 
+@pytest.mark.parametrize("dtype,act_scale", [
+    (torch.float32, None), (torch.bfloat16, None), (torch.int8, 0.37)])
+def test_kernel_at_crop_227_equals_plain_version(cuda, dtype, act_scale):
+    """CaffeNet's input: (32, 1, 256, 256, 3) -> 227 crops, random in-range
+    offsets and mirrors.  227 is prime (the rows split 57/57/57/56) and a row
+    is 681 values, a multiple of no 16-byte unit."""
+    args = _batch(cuda, 32, 1, 256, 256, 227, seed=227)
+    kw = dict(crop=227, mean=MEAN, out_dtype=dtype, act_scale=act_scale)
+    before = preprocess.crop_normalize_launches
+    got = preprocess.preprocess_on_device(*args, **kw)
+    torch.cuda.synchronize()
+    assert preprocess.crop_normalize_launches == before + 1
+    assert torch.equal(got, preprocess.crop_normalize_reference(*args, **kw))
+
+
 @pytest.mark.parametrize("n,s,size", [(2, 16, 224), (64, 16, 224), (3, 4, 7)])
 @pytest.mark.parametrize("dtype,act_scale", [
     (torch.float32, None), (torch.bfloat16, None), (torch.int8, 0.37)])

@@ -254,7 +254,8 @@ def test_program_checks_inputs_and_layer_types():
         prog.apply(params, state, {"data": torch.zeros(N, S + 1, HW, HW, 3)})
     with pytest.raises(ValueError, match="missing"):
         prog.init(torch.Generator(), {})
-    for ltype in ("mvn", "lrn"):
+    # types that neither package implements (Caffe's Python and Crop layers)
+    for ltype in ("python", "crop"):
         bad = GraphSpec("bad", {"data": (1, 4, 4, 3)},
                         [LayerSpec("l", ltype, ("data",), ("l",), {"num_output": 2})])
         with pytest.raises(KeyError, match=ltype):

@@ -79,8 +79,18 @@ def test_conv_bf16_policy_matches_jax():
 
 
 def test_transposed_conv_not_ported():
-    with pytest.raises(NotImplementedError):
-        ops.conv_nd(torch.zeros(1, 4, 4, 2), torch.zeros(2, 2, 3, 3), transposed=True)
+    """Transposed convolution is ported now (the name is kept from when it
+    raised): a dilated, grouped 2D case against the reference, each in its
+    own weight layout, (C_in, C_out/g, *k) and (*k, C_in, C_out/g)."""
+    rng = _rng(3)
+    x = rng.standard_normal((2, 5, 6, 4)).astype(np.float32)
+    w = rng.standard_normal((4, 3, 3, 2)).astype(np.float32)  # (C_in, C_out/g, 3, 2)
+    kw = dict(stride=2, pad=1, dilation=2, groups=2)
+    want = jops.conv_nd(jnp.asarray(x), jnp.asarray(w.transpose(2, 3, 0, 1)), transposed=True,
+                        **kw)
+    got = ops.conv_nd(torch.from_numpy(x), torch.from_numpy(w), transposed=True, **kw)
+    assert got.shape == want.shape == (2, 11, 11, 6)
+    _close(got, want)
 
 
 # -- pooling -----------------------------------------------------------------
