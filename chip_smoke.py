@@ -125,6 +125,25 @@ Phases (every failure raises; the exit code is then non-zero):
     and the CLI's ``time --bf16`` of its deploy form.  Prints one
     ``{"tail": ...}`` line.
 
+16. Phase ``parallel``: a world-1 NCCL process group on the card and its
+    mesh; full-width bf16 ECO-Lite trained through K1 by the plain
+    ``Trainer`` and by ``Trainer(mesh=)`` (data parallel, SyncBN) from one
+    state under ``cudnn.deterministic``, a warm-up and ten timed steps each:
+    losses, params and BN state equal, the two step medians side by side,
+    and one step of each under ``torch.profiler`` (its all-reduces and their
+    host ms, the device's busy ms);
+    full-width bf16 inference on K1's clips through the sharded,
+    tensor-parallel and segment-sharded inference of a world of one and a
+    2-stage pipeline on the one card, each equal to ``Program.apply`` (the
+    pipeline on the same four microbatches); two spawned ranks on the one
+    card over gloo (NCCL takes one rank a card), 4 videos each, one f32 DP
+    + SyncBN step: equal params on both, and within a stated bound of one
+    process's step over the 8 videos; the uint8 bf16 ECO-Lite serving
+    artifact (``torch.export``) at batch 8, a dynamic-batch one and the int8
+    one, loaded and run on the card by a fresh ``python3`` that cannot
+    import eco_tpu_torch, eco_tpu or jax, held to the servers' outputs and
+    timed beside ``UInt8Server``.  Prints one ``{"parallel": ...}`` line.
+
 Prints a ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it fails and
 prints no result.
@@ -142,6 +161,7 @@ import json
 import math
 import os
 import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -154,7 +174,12 @@ import torch
 
 from eco_tpu_torch.apps import MultiStreamRecognizer, RawPreprocessProgram, UInt8Server
 from eco_tpu_torch.apps import online
-from eco_tpu_torch.convert import optimize_for_inference, quantize_for_serving
+from eco_tpu_torch.convert import (
+    export_serving,
+    optimize_for_inference,
+    quantize_for_serving,
+    save_serving_artifact,
+)
 from eco_tpu_torch.data import (
     TransformConfig,
     VideoDataConfig,
@@ -164,6 +189,22 @@ from eco_tpu_torch.data import (
 from eco_tpu_torch.models import build_eco_lite, get_model
 from eco_tpu_torch.apps import serving
 from eco_tpu_torch.ops import _build, pool, poolfuse, preprocess, qconv, resize
+from eco_tpu_torch.parallel import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    SEGMENT_AXIS,
+    distributed_init,
+    make_mesh,
+    make_pp_infer_fn,
+    make_segment_sharded_infer_fn,
+    make_sharded_infer_fn,
+    make_sharded_train_step,
+    make_tp_infer_fn,
+    mesh_shape,
+    shard_batch,
+    shard_tp_tree,
+    split_stages,
+)
 from eco_tpu_torch.runtime import Program, get_impl, memory
 from eco_tpu_torch.runtime.executor import Context
 from eco_tpu_torch.spec.graph import GraphSpec, LayerSpec, graph_to_json
@@ -2382,6 +2423,389 @@ def tail_phase(dev, card: str, tables=None) -> dict:
     return {"k1_record": k1, "k1": caffenet["k1"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase parallel: data parallelism with SyncBN, inference over a mesh, two
+# ranks on the one card, and the torch.export serving artifacts
+# ---------------------------------------------------------------------------
+
+# the two-rank check: 4 videos a rank, one f32 step (TF32 off, dropout 0),
+# held to one process's step over the global batch of 8 by the relative L2
+# of the update: PERF.md section 2's bound for full-width f32 order
+# sensitivity (F32_UPDATE_REL_L2_BOUND)
+TWO_RANK_VIDEOS = 4
+TWO_RANK_TIMEOUT_S = 600
+# the artifacts: timed requests a path, and the loader's process time limit
+ARTIFACT_REQUESTS, ARTIFACT_TIMEOUT_S = 5, 600
+# the artifact's loader: a fresh python3 where eco_tpu_torch, eco_tpu and jax
+# cannot be imported; torch alone loads and runs each artifact on the card
+_ARTIFACT_LOADER = r"""
+import json, sys, time
+for m in ("eco_tpu_torch", "eco_tpu", "jax"):
+    sys.modules[m] = None
+import torch
+from torch.export.passes import move_to_device_pass
+paths, inputs, out_path, device, requests = sys.argv[1:6]
+paths, requests = json.loads(paths), int(requests)
+d = torch.load(inputs)
+if device == "cuda":
+    d["frames"] = d["frames"].pin_memory()  # as the server's requests come
+aug = [d["h_off"].to(device, torch.int32), d["w_off"].to(device, torch.int32),
+       d["mirror"].to(device, torch.bool)]
+out = {}
+for name, path in paths.items():
+    t0 = time.perf_counter()
+    mod = move_to_device_pass(torch.export.load(path), device).module()
+    out[name + "_load_s"] = time.perf_counter() - t0
+    if name == "dynamic":
+        for n in (4, 8):
+            out[f"dynamic{n}"] = mod(d["frames"][:n].to(device), *(a[:n] for a in aug)).cpu()
+        continue
+    ms = []
+    for i in range(1 + requests):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = mod(d["frames"].to(device, non_blocking=True), *aug)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out[name] = y.cpu()
+    out[name + "_ms"] = ms[1:]
+torch.save(out, out_path)
+assert not [m for m, v in sys.modules.items() if m.startswith(("eco_tpu", "jax")) and v]
+"""
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _same_trees(a, b) -> bool:
+    return a.keys() == b.keys() and all(
+        a[ln].keys() == b[ln].keys() and all(torch.equal(a[ln][k], b[ln][k]) for k in a[ln])
+        for ln in a)
+
+
+def _profile_step(step, ts, batch) -> dict:
+    """One step under ``torch.profiler``: its wall ms (host clock, to the
+    end of the device's work), the device's busy ms (kernel time summed),
+    and the host ms and count of the all-reduces it issues (c10d ops)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step(ts, batch, torch.Generator().manual_seed(SEED))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    reduces = [e for e in events if e.key == "c10d::allreduce_"]
+    # the kernels' own entries: a CPU op's device time repeats its kernels'
+    busy = sum(e.self_device_time_total for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return {"wall_ms": wall, "device_busy_ms": busy, "idle_share": 1 - busy / wall,
+            "all_reduces": sum(e.count for e in reduces),
+            "all_reduce_host_ms": sum(e.cpu_time_total for e in reduces) / 1e3}
+
+
+@_cudnn_flags(deterministic=True, benchmark=False)
+def _dp_train(dev, card: str, mesh) -> dict:
+    """Full-width bf16 ECO-Lite through K1, the plain Trainer and
+    ``Trainer(mesh=)`` (data parallel, SyncBN) from one state: a warm-up and
+    TRAIN_STEPS timed steps each; losses and params must be equal."""
+    graph = build_eco_lite(NUM_CLASSES, SEGMENTS, crop_size=CROP, with_loss=True, batch=BATCH)
+    prog = RawPreprocessProgram(
+        Program(graph, train=True, compute_dtype=torch.bfloat16, device=dev), crop=CROP,
+        mean=MEAN)
+    cfg = SolverConfig(**SOLVER, max_iter=1 + TRAIN_STEPS, display=0, snapshot=0)
+    batch = _train_batch(SEED + 5)
+    ts0 = init_train_state(*prog.init(torch.Generator().manual_seed(SEED),
+                                      {k: v[0] for k, v in batch.items()}))
+    runs = {}
+    for name, m in (("plain", None), ("dp", mesh)):
+        trainer = Trainer(prog, cfg, mesh=m, log_fn=print, metrics_lag=1)
+        inner, events, losses = trainer.step, [], []
+
+        def timed(ts, b, g, inner=inner, events=events):
+            out = inner(ts, b, g)
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+            return out
+
+        trainer.step = timed
+        _reset_counts()
+        ts = trainer.solve(ts0, itertools.repeat(batch),
+                           hooks=[lambda it, _ts, mt, losses=losses: losses.append(
+                               float(mt["loss"]))])
+        k1 = _counts()[0]
+        per_step = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+        runs[name] = dict(ts=ts, losses=losses, ms=per_step, k1=k1,
+                          profile=_profile_step(inner, ts0, batch))
+        print(f"parallel {name} train: {len(losses)} bf16 steps of {BATCH} x {SEGMENTS}, "
+              f"losses {[round(l, 4) for l in losses]}; timed steps (ms) "
+              f"{[round(t, 3) for t in per_step]}; K1 launches {k1}; one step under "
+              f"torch.profiler {runs[name]['profile']}")
+    plain, dp = runs["plain"], runs["dp"]
+    equal = (plain["losses"] == dp["losses"] and _same_trees(plain["ts"].params, dp["ts"].params)
+             and _same_trees(plain["ts"].state, dp["ts"].state))
+    medians = {k: statistics.median(runs[k]["ms"]) for k in runs}
+    print(f"parallel train under cudnn.deterministic: the world-1 DP + SyncBN step against "
+          f"the plain step, median {medians['dp']:.3f} vs {medians['plain']:.3f} ms a step; "
+          f"losses, params and BN state equal: {equal}; {card}")
+    if not equal:
+        raise AssertionError("the world-1 data-parallel step differs from the plain step")
+    for name, r in runs.items():
+        if r["k1"] != 1 + TRAIN_STEPS or not all(map(math.isfinite, r["losses"])):
+            raise AssertionError(f"parallel {name} train: K1 {r['k1']}, losses {r['losses']}")
+    return {"k1_plain": plain["k1"], "k1_dp": dp["k1"], "dp_ms": medians["dp"],
+            "plain_ms": medians["plain"], "profile": {k: r["profile"] for k, r in runs.items()}}
+
+
+@_cudnn_flags(deterministic=True, benchmark=False)
+def _mesh_infer(dev, card: str, reqs) -> dict:
+    """Full-width bf16 ECO-Lite inference on K1's clips of one request,
+    through the sharded, tensor-parallel and segment-sharded inference of a
+    world of one and a 2-stage pipeline on the one card: each equal to
+    ``Program.apply`` (the pipeline: on the same 4 microbatches)."""
+    graph = build_eco_lite(NUM_CLASSES, SEGMENTS, crop_size=CROP, with_loss=False, batch=BATCH)
+    prog = Program(graph, compute_dtype=torch.bfloat16, device=dev)
+    params, state = prog.init(torch.Generator().manual_seed(SEED), {"data": graph.inputs["data"]})
+    frames, aug = reqs[1]
+    _reset_counts()
+    clips = preprocess.preprocess_on_device(frames.to(dev), aug["h_off"], aug["w_off"],
+                                            aug["mirror"], crop=CROP, mean=MEAN)
+    k1 = _counts()[0]
+    with torch.no_grad():
+        want = prog.apply(params, state, {"data": clips})[0]["probs"]
+        micro = torch.cat([prog.apply(params, state, {"data": c})[0]["probs"]
+                           for c in clips.chunk(4)])
+    tpm, segm = make_mesh({DATA_AXIS: 1, MODEL_AXIS: 1}), make_mesh({DATA_AXIS: 1,
+                                                                      SEGMENT_AXIS: 1})
+    stages = split_stages(prog, {"data": clips}, 2, params=params)
+    got = {
+        "sharded": make_sharded_infer_fn(prog, make_mesh())(params, state, clips),
+        "tp": make_tp_infer_fn(prog, tpm)(shard_tp_tree(tpm, params), shard_tp_tree(tpm, state),
+                                          clips),
+        "segment": make_segment_sharded_infer_fn(prog, segm)(params, state, clips),
+        "pp": make_pp_infer_fn(prog, params, state, [dev, dev], sample_inputs={"data": clips},
+                               microbatches=4)({"data": clips}),
+    }
+    equal = {k: bool(torch.equal(v, micro if k == "pp" else want)) for k, v in got.items()}
+    pp_rel = _rel_l2(got["pp"], want)
+    print(f"parallel inference, bf16, {BATCH} videos: equal to Program.apply {equal}; the "
+          f"pipeline's 2 stages of {[len(s.layer_names) for s in stages]} layers on one card, "
+          f"4 microbatches, against the whole batch's apply: rel L2 {pp_rel:.3e}; {card}")
+    if not all(equal.values()):
+        raise AssertionError(f"mesh inference differs from Program.apply: {equal}")
+    return {"k1": k1, "pp_vs_batch_rel_l2": pp_rel,
+            "pp_stage_layers": [len(s.layer_names) for s in stages]}
+
+
+def _two_rank_setup(dev, videos: int):
+    """ECO-Lite TRAIN at full width, f32, dropout 0, through K1; the seeded
+    initial state and a seeded global batch of ``videos`` videos."""
+    graph = build_eco_lite(NUM_CLASSES, SEGMENTS, crop_size=CROP, with_loss=True, batch=videos,
+                           dropout_ratio=0.0)
+    prog = RawPreprocessProgram(Program(graph, train=True, device=dev), crop=CROP, mean=MEAN)
+    batch = _train_batch(SEED + 6, videos=videos)
+    ts = init_train_state(*prog.init(torch.Generator().manual_seed(SEED),
+                                     {k: v[0] for k, v in batch.items()}))
+    return prog, ts, batch
+
+
+def _two_rank_worker(rank: int, device: str, port: int, outdir: str):
+    """One of two ranks on the one card over gloo (NCCL takes one rank a
+    card): one data-parallel f32 step with SyncBN on its 4 videos."""
+    from eco_tpu_torch.parallel.multiprocess import params_digest
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    distributed_init(device=device, backend="gloo", init_method=f"tcp://localhost:{port}",
+                     world_size=2, rank=rank)
+    try:
+        mesh = make_mesh()
+        prog, ts, batch = _two_rank_setup(dev, 2 * TWO_RANK_VIDEOS)
+        step = make_sharded_train_step(prog, SolverConfig(**SOLVER), mesh)
+        _reset_counts()
+        t0 = time.perf_counter()
+        ts, m = step(ts, shard_batch(mesh, batch, batch_axis=1))
+        k1 = _counts()[0]
+        torch.save({"params": _to(ts.params, "cpu"), "loss": float(m["loss"]),
+                    "digest": params_digest(ts.params), "k1": k1,
+                    "s": time.perf_counter() - t0}, os.path.join(outdir, f"{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _two_ranks(dev, card: str) -> dict:
+    """Two spawned processes train one step on the one card over gloo; their
+    params must be equal, and within F32_UPDATE_REL_L2_BOUND of one process's
+    f32 step over the global batch."""
+    import torch.multiprocessing as mp
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="eco_two_ranks_") as outdir:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(_two_rank_worker, args=(str(dev), _free_port(), outdir),
+                                 nprocs=2, join=False, start_method="spawn")
+        deadline = time.monotonic() + TWO_RANK_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=1):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"the two ranks still run after {TWO_RANK_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        wall = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(outdir, f"{r}.pt")) for r in range(2)]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    prog, ts0, batch = _two_rank_setup(dev, 2 * TWO_RANK_VIDEOS)
+    _reset_counts()
+    one, m = make_train_step(prog, SolverConfig(**SOLVER))(ts0, batch)
+    k1 = _counts()[0]
+    keys = [(ln, k) for ln in sorted(ts0.params) for k in sorted(ts0.params[ln])]
+    start = torch.cat([ts0.params[ln][k].flatten().cpu() for ln, k in keys])
+    want = torch.cat([one.params[ln][k].flatten().cpu() for ln, k in keys]) - start
+    got = torch.cat([ranks[0]["params"][ln][k].flatten() for ln, k in keys]) - start
+    rel = ((got - want).norm() / want.norm()).item()
+    same = ranks[0]["digest"] == ranks[1]["digest"]
+    print(f"two ranks on one card over gloo, f32 (TF32 off), {TWO_RANK_VIDEOS} videos a rank, "
+          f"one DP + SyncBN step: params digests equal {same} ({ranks[0]['digest'][:12]}); "
+          f"losses {ranks[0]['loss']:.6f} / {ranks[1]['loss']:.6f} against one process's "
+          f"{float(m['loss']):.6f}; update rel L2 against one process's step over the global "
+          f"batch {rel:.3e} (bound {F32_UPDATE_REL_L2_BOUND}); ranks' step "
+          f"{ranks[0]['s']:.2f} / {ranks[1]['s']:.2f} s with the first launches, {wall:.1f} s "
+          f"for both processes; {card}")
+    if not same or not rel <= F32_UPDATE_REL_L2_BOUND:
+        raise AssertionError(f"two ranks: digests equal {same}, update rel L2 {rel}")
+    return {"k1_ranks": ranks[0]["k1"] + ranks[1]["k1"], "k1_one": k1, "update_rel_l2": rel}
+
+
+def _artifacts(dev, card: str, reqs, lite, int8_lite) -> dict:
+    """The uint8 bf16 ECO-Lite artifact at batch 8, a dynamic-batch one and
+    the uint8 int8 one, exported and saved here, loaded and run on the card
+    in a fresh python3 that cannot import eco_tpu_torch, eco_tpu or jax.
+    Each returns the ``fc8`` logits, held to UInt8Server's: bf16 within
+    BF16_LOGITS_REL_L2_BOUND, int8 within INT8_CARD_VS_CPU_REL_L2_BOUND.
+    The bf16 artifact must also be nearer its server than the server fed
+    either of two planted faults (mirror flipped, mean off by one)."""
+    graph, params, state = lite
+    prog16 = Program(graph, compute_dtype=torch.bfloat16, device=dev)
+    kw = dict(batch=BATCH, segments=SEGMENTS, crop=CROP, uint8=True, frame_hw=(HEIGHT, WIDTH),
+              mean=MEAN, output="fc8")
+    qprog, qp, qs = int8_lite
+    frames, aug = reqs[1]
+    with tempfile.TemporaryDirectory(prefix="eco_artifacts_") as tmp:
+        paths, sizes, export_s = {}, {}, {}
+        for name, prog, p, s, extra in (
+                ("static", prog16, params, state, {}),
+                ("dynamic", prog16, params, state, {"dynamic_batch": True}),
+                ("int8", qprog, qp, qs, {})):
+            t0 = time.perf_counter()
+            paths[name] = os.path.join(tmp, f"{name}.pt2")
+            sizes[name] = save_serving_artifact(export_serving(prog, p, s, **kw, **extra),
+                                                paths[name])
+            export_s[name] = time.perf_counter() - t0
+        torch.save({"frames": frames, **aug}, os.path.join(tmp, "inputs.pt"))
+        server = UInt8Server(Program(graph, device=dev), params, state, crop=CROP, mean=MEAN,
+                             output="fc8")
+        torch.backends.cudnn.benchmark = True
+        outs, per_req, _, _ = _timed_requests(server, [reqs[1]] * (1 + ARTIFACT_REQUESTS))
+        want = outs[-1].float().cpu()
+        want8 = UInt8Server(qprog, qp, qs, crop=CROP, mean=MEAN, output="fc8")(frames, **aug)
+        faulty = {
+            "mirror_flipped": server(frames, **{**aug, "mirror": ~aug["mirror"]}),
+            "mean_plus_1": UInt8Server(Program(graph, device=dev), params, state, crop=CROP,
+                                       mean=tuple(m + 1 for m in MEAN), output="fc8")(
+                                           frames, **aug)}
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", _ARTIFACT_LOADER, json.dumps(paths),
+             os.path.join(tmp, "inputs.pt"), os.path.join(tmp, "outputs.pt"), dev.type,
+             str(ARTIFACT_REQUESTS)],
+            capture_output=True, text=True, timeout=ARTIFACT_TIMEOUT_S)
+        if proc.returncode != 0:
+            raise AssertionError(f"the artifact loader failed: {proc.stderr[-3000:]}")
+        loader_s = time.perf_counter() - t0
+        got = torch.load(os.path.join(tmp, "outputs.pt"))
+    rel = {"static": _rel_l2(got["static"], want),
+           "dynamic4": _rel_l2(got["dynamic4"], want[:4]),
+           "dynamic8": _rel_l2(got["dynamic8"], want),
+           "int8": _rel_l2(got["int8"], want8.cpu())}
+    probs_rel = _rel_l2(torch.softmax(got["static"].float(), -1), torch.softmax(want, -1))
+    fault_rel = {k: _rel_l2(got["static"], v.float().cpu()) for k, v in faulty.items()}
+    medians = {"artifact": statistics.median(got["static_ms"]),
+               "int8_artifact": statistics.median(got["int8_ms"]),
+               "server": statistics.median(per_req)}
+    print(f"artifacts (torch.export, plain K1/K3 inside): sizes "
+          f"{ {k: round(v / 2**20, 1) for k, v in sizes.items()} } MiB, export + save "
+          f"{ {k: round(v, 1) for k, v in export_s.items()} } s; loaded in a python3 without "
+          f"eco_tpu_torch ({loader_s:.1f} s, load "
+          f"{ {k: round(got[k + '_load_s'], 1) for k in paths} } s); fc8 logits rel L2 against "
+          f"the servers {rel} (bounds {BF16_LOGITS_REL_L2_BOUND} bf16, "
+          f"{INT8_CARD_VS_CPU_REL_L2_BOUND} int8); the bf16 artifact's probs {probs_rel:.3e} "
+          f"off the server's; its logits {fault_rel} off the server fed a planted fault; "
+          f"ms a request of {BATCH} on the host's clock, copy included: artifact "
+          f"{medians['artifact']:.3f} ({[round(t, 3) for t in got['static_ms']]}), int8 "
+          f"artifact {medians['int8_artifact']:.3f}, UInt8Server {medians['server']:.3f} "
+          f"({[round(t, 3) for t in per_req]}); {card}")
+    bounds = {"static": BF16_LOGITS_REL_L2_BOUND, "dynamic4": BF16_LOGITS_REL_L2_BOUND,
+              "dynamic8": BF16_LOGITS_REL_L2_BOUND, "int8": INT8_CARD_VS_CPU_REL_L2_BOUND}
+    if not all(rel[k] <= bounds[k] for k in bounds):
+        raise AssertionError(f"an artifact is off its server: {rel}")
+    if not rel["static"] < min(fault_rel.values()):
+        raise AssertionError(f"the bf16 artifact ({rel['static']}) is nearer a planted fault "
+                             f"than its server: {fault_rel}")
+    if tuple(got["dynamic4"].shape) != (4, NUM_CLASSES):
+        raise AssertionError(f"the dynamic artifact gave {tuple(got['dynamic4'].shape)}")
+    return {"rel_l2": rel, "probs_rel_l2": probs_rel, "fault_rel_l2": fault_rel, "ms": medians}
+
+
+def parallel_phase(dev, card: str, reqs, lite, int8_lite) -> dict:
+    """Phase ``parallel``: a world-1 NCCL group and its mesh; full-width bf16
+    ECO-Lite trained by ``Trainer(mesh=)`` (DP + SyncBN, K1 every step)
+    equal to the plain Trainer; mesh and pipeline inference equal to
+    ``Program.apply``; two ranks on the one card over gloo; the serving
+    artifacts.  Prints one ``{"parallel": ...}`` line and returns K1's
+    launches by path."""
+    t0 = time.perf_counter()
+    distributed_init(device=str(dev), init_method=f"tcp://localhost:{_free_port()}",
+                     world_size=1, rank=0)
+    try:
+        backend = torch.distributed.get_backend()
+        mesh = make_mesh()
+        print(f"parallel: process group {backend}, world {torch.distributed.get_world_size()}, "
+              f"mesh {mesh_shape(mesh)} on {mesh.device_type}")
+        if dev.type == "cuda" and backend != "nccl":
+            raise AssertionError(f"the card's process group is {backend}, not nccl")
+        train = _dp_train(dev, card, mesh)
+        infer = _mesh_infer(dev, card, reqs)
+    finally:
+        torch.distributed.destroy_process_group()
+    two = _two_ranks(dev, card)
+    art = _artifacts(dev, card, reqs, lite, int8_lite)
+    seconds = time.perf_counter() - t0
+    print(json.dumps({"parallel": {
+        "backend": backend, "dp_step_ms": train["dp_ms"], "plain_step_ms": train["plain_ms"],
+        "step_profile": train["profile"],
+        "two_rank_update_rel_l2": two["update_rel_l2"], "artifact_rel_l2": art["rel_l2"],
+        "artifact_probs_rel_l2": art["probs_rel_l2"], "artifact_fault_rel_l2": art["fault_rel_l2"],
+        "artifact_ms": art["ms"], "pp_vs_batch_rel_l2": infer["pp_vs_batch_rel_l2"],
+        "seconds": seconds, "card": card}}))
+    return {"k1": {"parallel_plain": train["k1_plain"], "parallel_dp": train["k1_dp"],
+                   "parallel_infer": infer["k1"], "parallel_two_ranks": two["k1_ranks"],
+                   "parallel_one_process": two["k1_one"]}}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--k3-baseline", metavar="QCONV_CU",
@@ -2436,7 +2860,6 @@ def main() -> None:
                                                          card, baseline, timed, args.k3_table)}
     del server
     online_counts = online_phase(dev, card, lite, int8_lite)
-    del int8_lite
     k1_int8_full, k3_int8_full, server, _ = serve_int8(dev, card, "eco_full_kinetics", "fc8N",
                                                        full + (full_logits16,), reqs)
     k3_request["eco_full_kinetics"] = k3_request_layers(server, reqs[1], "eco_full_kinetics",
@@ -2448,6 +2871,7 @@ def main() -> None:
     cli_counts = cli_phase(card, args.cli_tables)
     tail = tail_phase(dev, card, args.cli_tables)
     checked.update(tail["k1_record"])
+    parallel = parallel_phase(dev, card, reqs, lite, int8_lite)
     for name in ("jax", "eco_tpu"):
         if name in sys.modules:
             raise AssertionError(f"the port imported {name}")
@@ -2455,7 +2879,7 @@ def main() -> None:
                 "serve_k2": k1_k2serve, "serve_full": k1_full, "serve_full_k2": k1_full_k2,
                 "serve_int8_lite": k1_int8_lite, "serve_int8_full": k1_int8_full,
                 **online_counts["k1"], **k1_e2e, "remat": remat["k1"], **cli_counts["k1"],
-                **tail["k1"]}
+                **tail["k1"], **parallel["k1"]}
     k2_paths = {"test": k2_test, "serve_k2": k2_serve, "serve_full_k2": k2_full}
     k3_paths = {"serve_int8_lite": k3_int8_lite, "serve_int8_full": k3_int8_full,
                 **online_counts["k3"], **cli_counts["k3"]}

@@ -151,8 +151,9 @@ class RawPreprocessProgram:
         inner["data"] = ((n * s,) if self._images else (n, s)) + (self.crop, self.crop, 3)
         return self.inner.init(generator, inner)
 
-    def apply(self, params, state, inputs, *, generator=None, capture=None, remat=None):
+    def apply(self, params, state, inputs, *, generator=None, capture=None, remat=None,
+              dist=None):
         inner = self._inner_inputs(inputs)
         inner["data"] = self._clips(inputs)
         return self.inner.apply(params, state, inner, generator=generator, capture=capture,
-                                remat=remat)
+                                remat=remat, dist=dist)

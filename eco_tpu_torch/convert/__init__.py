@@ -1,4 +1,9 @@
 from eco_tpu_torch.convert.caffemodel import load_blobproto, load_caffemodel
+from eco_tpu_torch.convert.export import (
+    export_serving,
+    load_serving_artifact,
+    save_serving_artifact,
+)
 from eco_tpu_torch.convert.bridge import params_from_jax, params_to_jax
 from eco_tpu_torch.convert.load import convert_conv_weight, fold_bn, import_caffe_weights
 from eco_tpu_torch.convert.quantize import (

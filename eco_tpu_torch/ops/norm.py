@@ -11,9 +11,11 @@ running variance is unbiased.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any
 
 import torch
+
+from eco_tpu_torch.ops.collectives import all_reduce_mean
 
 DEFAULT_EPS = 1e-5
 DEFAULT_MOMENTUM = 0.9
@@ -33,18 +35,27 @@ def bn_inference(x, gamma, beta, mean, var, *, eps: float = DEFAULT_EPS):
 
 
 def bn_train(x, gamma, beta, running_mean, running_var, *, eps: float = DEFAULT_EPS,
-             momentum: float = DEFAULT_MOMENTUM, axis_name: Optional[str] = None):
+             momentum: float = DEFAULT_MOMENTUM, axis_name: Any = None):
     """Training-mode BN.  Returns (y, new_running_mean, new_running_var).
 
     The running statistics are state, not outputs: they carry no gradient.
-    ``axis_name`` (SyncBN across a mesh axis in the reference) is not ported.
+    ``axis_name`` -- a process group, or a mesh dimension (``mesh["data"]``)
+    -- makes it SyncBN (sync_bn_layer.cu:132-218): the moments ``(E[x],
+    E[x^2])`` are averaged over its ranks by one SUM all-reduce of the
+    stacked pair divided by the group's size, the reference's ``lax.pmean``
+    under equal per-rank counts; the gradient flows back through the same
+    mean.  A group of one gives plain ``bn_train`` bit for bit.
     """
-    if axis_name is not None:
-        raise NotImplementedError("SyncBN (axis_name) is not ported yet")
     xf = x.float()
     dims = tuple(range(x.ndim - 1))
     mean = xf.mean(dim=dims)
     mean_sq = xf.square().mean(dim=dims)
+    if isinstance(axis_name, str):
+        raise TypeError(f"axis_name={axis_name!r}: SyncBN takes a process group or a mesh "
+                        "dimension (mesh['data']), not a bare axis name")
+    if axis_name is not None:
+        group = axis_name.get_group() if hasattr(axis_name, "get_group") else axis_name
+        mean, mean_sq = all_reduce_mean(torch.stack([mean, mean_sq]), group).unbind(0)
     var = mean_sq - mean.square()
     y = bn_inference(x, gamma, beta, mean, var, eps=eps)
     with torch.no_grad():

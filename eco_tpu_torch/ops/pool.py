@@ -110,7 +110,10 @@ def pool_nd(
     if mode in ("ave", "avg", "mean"):
         xp = _pad_spatial(x.float(), pad_cfg, 0.0)
         acc = _windows(xp, kernel, stride).sum(dim=window_dims)
-        div = ave_divisors(spatial, kernel, stride, pad, x.device)
+        # a trace (torch.export) makes its own grid: a tensor made inside one
+        # trace must not be cached for the next
+        divisors = ave_divisors.__wrapped__ if torch.compiler.is_compiling() else ave_divisors
+        div = divisors(spatial, kernel, stride, pad, x.device)
         return (acc / div).to(x.dtype)
     raise ValueError(f"unknown pool mode {mode!r}")
 

@@ -40,6 +40,7 @@ from torch import nn
 from eco_tpu_torch.spec.graph import TEST, TRAIN, GraphSpec, LayerSpec
 from eco_tpu_torch.utils.shapes import normalize_spatial_param
 from eco_tpu_torch import ops
+from eco_tpu_torch.ops import collectives
 from eco_tpu_torch.ops.qconv import kernel_layout
 from eco_tpu_torch.runtime import memory
 from eco_tpu_torch.runtime.init import fill
@@ -55,15 +56,19 @@ DATA_LAYER_TYPES = {
 class Context:
     """What one ``apply`` hands every layer: the phase, the step's random
     seed, the compute type (None keeps the input's), the BN statistics that
-    train mode updates, and the program's device (where a layer with no
+    train mode updates, the program's device (where a layer with no
     bottoms, DummyData, makes its tops; ``meta`` while ``init`` propagates
-    shapes)."""
+    shapes), and, under a mesh, the process group SyncBN averages its
+    moments over (``bn_axis_name``, the reference's field) and the one the
+    Gather and Scatter layers cross (``data_group``)."""
 
     train: bool = False
     seed: Optional[int] = None
     compute_dtype: Optional[torch.dtype] = None
     new_state: dict = field(default_factory=dict)
     device: Any = "cuda"
+    bn_axis_name: Any = None
+    data_group: Any = None
 
     def layer_generator(self, layer_name: str, device) -> Optional[torch.Generator]:
         """A generator on ``device`` for this layer and step: the step's seed
@@ -73,6 +78,45 @@ class Context:
             return None
         seed = self.seed ^ zlib.crc32(layer_name.encode())
         return torch.Generator(device=device).manual_seed(seed)
+
+
+class Collectives:
+    """How one ``apply`` and one train step run across the ranks of a mesh
+    (``eco_tpu_torch.parallel``); this base is one rank alone.
+
+    ``bn_axis_name`` and ``data_group`` go into the ``Context``, and
+    ``seed_offset`` is XORed into the step's seed.  ``start``
+    sees the inputs of every ``apply``; ``input_shape`` says what an
+    input's declared shape is on one rank;
+    ``run_layer`` runs one layer (tensor and segment sharding change it).
+    The train step calls ``reduce_grads`` on the accumulated gradients
+    before the clip, ``sq_norm`` for the clip's global norm, and
+    ``reduce_metric`` on the loss it reports; the eval step calls
+    ``reduce_metric`` on its metric tops."""
+
+    bn_axis_name: Any = None
+    data_group: Any = None
+    # mixed into the step's seed: ranks with other data draw other dropout
+    # masks, replicas of the same data the same ones
+    seed_offset: int = 0
+
+    def start(self, inputs: Mapping[str, Any]) -> None:
+        """Called with the inputs at the start of every ``apply``."""
+
+    def input_shape(self, name: str, declared: tuple) -> tuple:
+        return declared
+
+    def run_layer(self, layer, impl, params, state, inputs, ctx) -> list:
+        return impl.apply(layer, params, state, inputs, ctx)
+
+    def reduce_grads(self, keys, grads) -> list:
+        return grads
+
+    def sq_norm(self, keys, grads):
+        return sum(g.float().square().sum() for g in grads)
+
+    def reduce_metric(self, value):
+        return value
 
 
 class LayerImpl:
@@ -255,6 +299,7 @@ class _BN(LayerImpl):
             y, mean, var = ops.bn_train(
                 inputs[0], params["gamma"], params["beta"], state["mean"],
                 state["var"], eps=eps, momentum=float(spec.opt("momentum", 0.9)),
+                axis_name=ctx.bn_axis_name,
             )
             ctx.new_state[spec.name] = {"mean": mean, "var": var}
             return [y]
@@ -439,6 +484,28 @@ class _Identity(LayerImpl):
         return [inputs[0]]
 
 
+class _Gather(LayerImpl):
+    """Model-parallel section entry (gather_layer.cpp): under a mesh the
+    batch is all-gathered over ``data`` so the section runs on the whole
+    batch on every rank; its gradient is reduce-scattered, since each rank
+    goes on with its own loss.  The identity outside a mesh."""
+
+    def apply(self, spec, params, state, inputs, ctx):
+        if ctx.data_group is None:
+            return [inputs[0]]
+        return [collectives.gather_batch(inputs[0], ctx.data_group)]
+
+
+class _Scatter(LayerImpl):
+    """Model-parallel section exit (scatter_layer.cpp): under a mesh each
+    rank takes its slice of the batch back.  The identity outside a mesh."""
+
+    def apply(self, spec, params, state, inputs, ctx):
+        if ctx.data_group is None:
+            return [inputs[0]]
+        return [collectives.split_to_group(inputs[0], 0, ctx.data_group)]
+
+
 # --------------------------------------------------------------------------
 # The rest of Caffe's layer catalogue (eco_tpu/runtime/executor.py:385-1137)
 # --------------------------------------------------------------------------
@@ -563,6 +630,7 @@ class _BatchNormCaffe(LayerImpl):
             y, mean, var = ops.bn_train(
                 x, ones, zeros, state["mean"], state["var"], eps=eps,
                 momentum=float(spec.opt("moving_average_fraction", 0.999)),
+                axis_name=ctx.bn_axis_name,
             )
             ctx.new_state[spec.name] = {"mean": mean, "var": var}
             return [y]
@@ -903,11 +971,8 @@ IMPLS: dict[str, LayerImpl] = {
     "power": _Power(),
     "silence": _Sink(),
     "bias": _Bias(),
-    # the entry and exit of a model-parallel section (gather_layer.cpp,
-    # scatter_layer.cpp): the identity on one device, as in the reference
-    # outside a mesh
-    "gather": _Identity(),
-    "scatter": _Identity(),
+    "gather": _Gather(),
+    "scatter": _Scatter(),
     "sigmoid": _Pointwise(torch.sigmoid),
     "tanh": _Pointwise(torch.tanh),
     "absval": _Pointwise(torch.abs),
@@ -1059,7 +1124,8 @@ class Program(nn.Module):
 
     def apply(self, params: Mapping, state: Mapping, inputs: Mapping[str, Any],
               *, generator: Optional[torch.Generator] = None,
-              capture: Optional[Sequence[str]] = None, remat: Optional[str] = None):
+              capture: Optional[Sequence[str]] = None, remat: Optional[str] = None,
+              dist: Optional[Collectives] = None):
         """Run the graph.  Returns (outputs, new_state): ``outputs`` maps
         every dangling top and every ``capture``d blob to its value;
         ``new_state`` is ``state`` with the BN statistics that a train-mode
@@ -1070,18 +1136,28 @@ class Program(nn.Module):
         tensor's device.  A CPU generator costs no device synchronisation.
         ``remat`` runs the layers under a rematerialization policy of
         ``runtime/memory.py`` (the values are the same; the backward pass
-        recomputes what the policy does not keep).
+        recomputes what the policy does not keep).  ``dist`` runs it as one
+        rank of a mesh (``eco_tpu_torch.parallel``): SyncBN, the Gather and
+        Scatter layers' collectives, and tensor or segment sharding.
         """
         seed = None
         if generator is not None:
             seed = int(torch.randint(0, 2**62, (1,), generator=generator,
                                      device=generator.device).item())
+            if dist is not None:
+                seed ^= dist.seed_offset
         ctx = Context(train=self.train, seed=seed, compute_dtype=self.compute_dtype,
-                      device=self.device)
+                      device=self.device,
+                      bn_axis_name=None if dist is None else dist.bn_axis_name,
+                      data_group=None if dist is None else dist.data_group)
         blobs: dict[str, torch.Tensor] = {}
+        if dist is not None:
+            dist.start(inputs)
         for k, v in inputs.items():
             v = torch.as_tensor(v).to(self.device, non_blocking=True)
             declared = self.graph.inputs.get(k)
+            if declared is not None and dist is not None:
+                declared = dist.input_shape(k, declared)
             if declared is not None and tuple(v.shape[1:]) != tuple(declared[1:]):
                 # batch (axis 0) is free; a wrong segment count would otherwise
                 # be silently reinterpreted by the segment reshapes
@@ -1101,7 +1177,9 @@ class Program(nn.Module):
             for layer, impl in steps:
                 ins = [blobs[b] for b in layer.bottoms]
                 lp = self._layer_params(layer, impl, params, ins, shared)
-                outs = impl.apply(layer, lp, state.get(layer.name, {}), ins, c)
+                st = state.get(layer.name, {})
+                outs = (impl.apply(layer, lp, st, ins, c) if dist is None
+                        else dist.run_layer(layer, impl, lp, st, ins, c))
                 blobs.update(zip(layer.tops, outs))
 
         steps = list(zip(self.exec_layers, self._impls))
@@ -1133,8 +1211,9 @@ class Program(nn.Module):
                                  "layer provided it")
         return lp
 
-    def forward(self, params, state, inputs, *, generator=None, capture=None):
-        return self.apply(params, state, inputs, generator=generator, capture=capture)
+    def forward(self, params, state, inputs, *, generator=None, capture=None, dist=None):
+        return self.apply(params, state, inputs, generator=generator, capture=capture,
+                          dist=dist)
 
     def total_loss(self, outputs: Mapping[str, Any]):
         """Sum of loss tops weighted by loss_weight (solver.cpp output calc)."""

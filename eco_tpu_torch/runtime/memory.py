@@ -91,9 +91,8 @@ def apply_with_remat(program, policy: Optional[str] = "dots"):
     if policy is None:
         return program.apply
 
-    def apply(params, state, inputs, *, generator=None, capture=None):
-        return program.apply(params, state, inputs, generator=generator, capture=capture,
-                             remat=policy)
+    def apply(params, state, inputs, **kw):
+        return program.apply(params, state, inputs, remat=policy, **kw)
 
     return apply
 

@@ -16,11 +16,14 @@ printed lines:
   export       --net ... --weights m.model.npz -o m.caffemodel
   plot, upgrade, convert-imageset, draw, online, extract
 
+  aot          --net ... --weights m.model.npz -o m.pt2  (torch.export artifact)
+
 Every command that runs a model takes ``--device`` (default ``cuda``): the
-card unless the caller names another device, with no fallback.  Not ported
-yet, and each exits with a message: ``aot`` (a ``torch.export`` artifact),
-and ``--dp``/``--tp`` above one device (DDP and SyncBN), both ROADMAP.md
-queue 1 item 5.
+card unless the caller names another device, with no fallback.  ``train``
+and ``test`` take ``--dp N`` / ``--tp N``: one rank per device, data
+parallel with SyncBN (x tensor parallel), NCCL on cards and gloo on the
+CPU.  Under ``torchrun`` (``WORLD_SIZE`` set) each process is a rank;
+otherwise the command spawns the ``dp x tp`` ranks itself.
 
 Run as ``python -m eco_tpu_torch.tools.cli <cmd> ...``.
 """
@@ -32,9 +35,6 @@ import os
 
 import numpy as np
 import torch
-
-_ITEM5 = "ROADMAP.md queue 1 item 5"
-
 
 def _build_graph(args, *, with_loss: bool):
     from eco_tpu_torch.models import get_model
@@ -186,6 +186,24 @@ def _make_pipeline(args, dcfg, *, train, seed=0, rank=0, world=1):
     )
 
 
+def _rank_data(mesh, dcfg):
+    """Under a mesh each rank decodes only its own videos, as the
+    reference's MPI ranks do (cursor sharding, base_data_layer.cpp:42-45):
+    ``batch / dp`` videos a batch from ``rank * batch / dp``, skipping the
+    other data ranks' videos.  Every rank keeps the solver's seed, so all
+    draw the same shuffle; ranks of one data index (``--tp``) read the same
+    videos.  Returns (config, rank, world) for ``_make_pipeline``."""
+    import dataclasses
+
+    from eco_tpu_torch.parallel.mesh import DATA_AXIS, axis_rank, axis_size
+
+    if mesh is None:
+        return dcfg, 0, 1
+    dp = axis_size(mesh, DATA_AXIS)
+    return (dataclasses.replace(dcfg, batch_size=dcfg.batch_size // dp),
+            axis_rank(mesh, DATA_AXIS), dp)
+
+
 def _wrap_raw(args, prog, dcfg):
     if getattr(args, "pipeline", None) not in ("raw", "native-raw"):
         return prog
@@ -196,20 +214,63 @@ def _wrap_raw(args, prog, dcfg):
     )
 
 
-def _one_device(args):
-    """--dp/--tp: the port trains and tests on one device for now."""
-    tp = getattr(args, "tp", 1)
-    dp = args.dp if args.dp != 0 else max(1, torch.cuda.device_count() // max(tp, 1))
-    if dp > 1 or tp > 1:
-        raise SystemExit(
-            f"--dp {dp} --tp {tp}: data and tensor parallelism (DDP, SyncBN) are "
-            f"not ported yet ({_ITEM5}); run on one device"
-        )
+def _visible_devices(device: str) -> int:
+    """Cards for ``cuda``; on the CPU each rank is a process on the host's
+    cores, so as many ranks as cores."""
+    return torch.cuda.device_count() if torch.device(device).type == "cuda" else (
+        os.cpu_count() or 1)
 
 
-def _world() -> int:
+def _rank_main(rank: int, world: int, port: int, args):
+    """One rank spawned by ``_parallel``: join the group, run the command."""
+    from eco_tpu_torch.parallel.mesh import distributed_init
+
+    if torch.device(args.device).type == "cuda":
+        args.device = f"cuda:{rank}"
+    else:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    distributed_init(device=args.device, init_method=f"tcp://localhost:{port}",
+                     world_size=world, rank=rank)
+    try:
+        args.fn(args)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _parallel(args, batch: int):
+    """--dp/--tp: None for one device; else this rank's mesh, after joining
+    the group (``torchrun``'s env) -- or, outside a group, spawn the ranks,
+    each running the command, and return False."""
+    from eco_tpu_torch.parallel.mesh import distributed_init, make_mesh
+
+    tp = args.tp
+    # --dp 0: every card (the CPU is one device)
+    cards = torch.cuda.device_count() if torch.device(args.device).type == "cuda" else 1
+    dp = args.dp if args.dp != 0 else max(1, cards // max(tp, 1))
+    if dp == 1 and tp == 1:
+        return None
+    if batch % dp:
+        raise SystemExit(f"--dp {dp} must divide the batch size {batch}")
+    if dp * tp > _visible_devices(args.device):
+        raise SystemExit(f"--dp {dp} x --tp {tp} exceeds the "
+                         f"{_visible_devices(args.device)} visible devices")
     dist = torch.distributed
-    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
+        if torch.device(args.device).type == "cuda":
+            args.device = f"cuda:{os.environ.get('LOCAL_RANK', '0')}"
+        distributed_init(device=args.device)
+    if not dist.is_initialized():
+        import torch.multiprocessing as mp
+
+        from eco_tpu_torch.parallel.multiprocess import _free_port
+
+        args.dp = dp
+        mp.spawn(_rank_main, args=(dp * tp, _free_port(), args), nprocs=dp * tp)
+        return False
+    if dist.get_world_size() != dp * tp:
+        raise SystemExit(f"--dp {dp} x --tp {tp} needs {dp * tp} ranks, the group has "
+                         f"{dist.get_world_size()}")
+    return make_mesh({"data": dp} if tp == 1 else {"data": dp, "model": tp})
 
 
 def cmd_device_query(args):
@@ -243,13 +304,25 @@ def cmd_time(args):
     return rows
 
 
+def _digest_line(trainer, ts, mesh):
+    """Under a mesh every rank logs the digest of the full params: they must
+    be equal on every rank."""
+    from eco_tpu_torch.parallel.multiprocess import params_digest
+    from eco_tpu_torch.utils.logging import log, rank
+
+    gather = getattr(trainer.dist, "gather_train_state", None)
+    full = gather(ts) if gather is not None else ts
+    log(f"rank {rank()}: params digest {params_digest(full.params)}", all_ranks=True)
+
+
 def cmd_train(args):
     import dataclasses
     import itertools
 
     from eco_tpu_torch.runtime import Program
     from eco_tpu_torch.train import restore_weights
-    from eco_tpu_torch.train.loop import Trainer, _rank, solver_config_from_prototxt
+    from eco_tpu_torch.train.loop import Trainer, solver_config_from_prototxt
+    from eco_tpu_torch.utils.logging import log
 
     cfg = solver_config_from_prototxt(open(args.solver).read())
     if args.net is None and args.zoo is None:
@@ -258,21 +331,20 @@ def cmd_train(args):
         net_file = parse_prototxt(open(args.solver).read()).get("net")
         args.net = os.path.join(os.path.dirname(args.solver), net_file)
     graph = _build_graph(args, with_loss=True)
-    _one_device(args)
-    train_prog = Program(graph, train=True, device=args.device)
-    test_prog = Program(graph, train=False, device=args.device)
-
     dcfg = _data_cfg_from_graph(graph, "train", args.list, args)
     if dcfg is None:
         raise SystemExit(
             "graph has no VideoData layer and no --list given; "
             "pass --list train.txt or use the python API"
         )
-    # multi-process: shard the list by cursor offset exactly like the
-    # reference's MPI ranks (base_data_layer.cpp:42-45)
-    pipe = _make_pipeline(
-        args, dcfg, train=True, seed=cfg.random_seed, rank=_rank(), world=_world(),
-    )
+    mesh = _parallel(args, dcfg.batch_size)
+    if mesh is False:
+        return None  # the spawned ranks ran the command
+    train_prog = Program(graph, train=True, device=args.device)
+    test_prog = Program(graph, train=False, device=args.device)
+    rank_cfg, rank, world = _rank_data(mesh, dcfg)
+    pipe = _make_pipeline(args, rank_cfg, train=True, seed=cfg.random_seed,
+                          rank=rank, world=world)
     train_prog = _wrap_raw(args, train_prog, dcfg)
     test_prog = _wrap_raw(args, test_prog, dcfg)
 
@@ -284,7 +356,8 @@ def cmd_train(args):
     it = micro_batches()
     first = next(it)
     trainer = Trainer(
-        train_prog, cfg, test_program=test_prog,
+        train_prog, cfg, test_program=test_prog, mesh=mesh,
+        log_fn=print if mesh is None else log,
         metrics_lag=0 if getattr(args, "no_overlap", False) else 1,
     )
     ts = trainer.init_state(
@@ -302,6 +375,10 @@ def cmd_train(args):
         )
         ts = dataclasses.replace(ts, params=params, state=state)
         print(f"Imported {len(report['loaded'])} caffemodel layers")
+    if args.tp > 1:
+        from eco_tpu_torch.parallel.tp import shard_tp_train_state
+
+        ts = shard_tp_train_state(mesh, ts)
 
     feed = itertools.chain([first], it)
     if not getattr(args, "no_overlap", False):
@@ -315,6 +392,8 @@ def cmd_train(args):
         ts = trainer.solve(ts, feed, resume_from=args.snapshot or None)
     finally:
         pipe.close()
+    if mesh is not None:
+        _digest_line(trainer, ts, mesh)
     return ts
 
 
@@ -323,21 +402,30 @@ def cmd_test(args):
     from eco_tpu_torch.train import load_model
     from eco_tpu_torch.train.loop import SolverConfig, Trainer
     from eco_tpu_torch.train.solver import init_train_state
+    from eco_tpu_torch.utils.logging import log
 
     graph = _build_graph(args, with_loss=True)
-    _one_device(args)
-    prog = Program(graph, train=False, device=args.device)
     dcfg = _data_cfg_from_graph(graph, "test", args.list, args)
     if dcfg is None:
         raise SystemExit(
             "graph has no VideoData layer and no --list given; pass --list"
         )
-    pipe = _make_pipeline(args, dcfg, train=False, seed=0)
+    mesh = _parallel(args, dcfg.batch_size)
+    if mesh is False:
+        return None  # the spawned ranks ran the command
+    prog = Program(graph, train=False, device=args.device)
+    rank_cfg, rank, world = _rank_data(mesh, dcfg)
+    pipe = _make_pipeline(args, rank_cfg, train=False, seed=0, rank=rank, world=world)
     prog = _wrap_raw(args, prog, dcfg)
     params, state = load_model(args.weights, device=args.device)
     ts = init_train_state(params, state)
-    trainer = Trainer(prog, SolverConfig(), test_program=prog)
     batches = (pipe.next_batch() for _ in range(args.iterations))
+    if args.tp > 1:
+        from eco_tpu_torch.parallel.tp import shard_tp_train_state
+
+        ts = shard_tp_train_state(mesh, ts)
+    trainer = Trainer(prog, SolverConfig(), test_program=prog, mesh=mesh,
+                      log_fn=print if mesh is None else log)
     try:
         means = trainer.test(ts, batches)
     finally:
@@ -749,6 +837,105 @@ def cmd_export(args):
     print(f"Exported {len(exported)} layers -> {args.output}")
 
 
+def _read_class_names(path):
+    """Class-name list, one per line; blank lines dropped (a trailing
+    newline must not become an empty class)."""
+    with open(path) as f:
+        return [ln.strip() for ln in f if ln.strip()]
+
+
+def cmd_aot(args):
+    """Export an inference program to a serving artifact (``torch.export``,
+    ``.pt2``): the deploy.prototxt + .caffemodel pair in one file, with the
+    weights baked in, loadable by any PyTorch process with no eco_tpu_torch
+    and no model code (``convert/export.py``).  The trace runs on the CPU,
+    so the artifact holds the plain versions of K1 and K3; loading, the
+    optimisation passes and the ``--int8`` calibration run on ``--device``."""
+    import json
+
+    from eco_tpu_torch.convert import (
+        export_serving, optimize_for_inference, save_serving_artifact,
+    )
+    from eco_tpu_torch.runtime import Program
+    from eco_tpu_torch.train import load_model
+
+    graph = _build_graph(args, with_loss=False)
+    params, state = load_model(args.weights, device=args.device)
+    if args.optimize:
+        graph, params, state = optimize_for_inference(graph, params, state)
+    prog = Program(graph, train=False, compute_dtype=torch.bfloat16 if args.bf16 else None,
+                   device=args.device)
+    if args.int8:
+        # post-training int8 quantization baked into the artifact (with
+        # --uint8 the int8 input plane joins the baked preprocess)
+        from eco_tpu_torch.convert.quantize import quantize_for_serving
+
+        batches = []
+        dcfg = _data_cfg_from_graph(graph, "test", args.list, args)
+        if args.list and dcfg is not None:
+            pipe = _make_pipeline(args, dcfg, train=False, seed=0)
+            for _ in range(args.calib_batches):
+                b = pipe.next_batch()
+                batches.append({k: torch.as_tensor(v).to(prog.device) for k, v in b.items()
+                                 if not graph.inputs or k in graph.inputs})
+            pipe.close()
+        else:
+            print("WARNING: no --list given; calibrating on random data")
+            if not graph.inputs:
+                raise SystemExit("graph declares no inputs; pass --list")
+            gen = torch.Generator().manual_seed(0)
+            batches.append({name: (60.0 * torch.randn(shape, generator=gen)).to(prog.device)
+                            for name, shape in graph.inputs.items()})
+        with torch.no_grad():
+            prog, params, state, qreport = quantize_for_serving(
+                prog, params, state, batches,
+                compute_dtype=torch.bfloat16 if args.bf16 else None)
+        graph = prog.graph
+        print(f"Quantized {len(qreport['quantized'])} layers "
+              f"({len(qreport['chained'])} int8-chained) for export")
+    # spatial size comes from the graph's declared input, not a flag
+    shape = graph.inputs.get("data")
+    crop = shape[2] if shape is not None and len(shape) == 5 else 224
+    segments = shape[1] if shape is not None and len(shape) == 5 else args.segments
+    # the preprocess mean baked into --uint8 artifacts (and the contract the
+    # sidecar declares for float inputs): --mean, else the graph's own
+    # transform_param mean_value, else the BGR ImageNet default
+    if args.mean:
+        mean_bgr = [float(v) for v in args.mean.split(",")]
+    else:
+        dcfg = _data_cfg_from_graph(graph, "test")
+        mean_bgr = (list(dcfg.transform.mean_values) if dcfg is not None
+                    else [104.0, 117.0, 123.0])
+    exported = export_serving(
+        prog, params, state, batch=args.batch, segments=segments, crop=crop,
+        dynamic_batch=args.dynamic_batch, uint8=args.uint8,
+        frame_hw=(args.frame_h, args.frame_w), mean=tuple(mean_bgr),
+    )
+    nbytes = save_serving_artifact(exported, args.output)
+    # deploy contract sidecar: the destination has no eco_tpu_torch to ask
+    in_specs = [n.meta["val"] for n in exported.graph.nodes
+                if n.op == "placeholder" and n.name in exported.graph_signature.user_inputs]
+    meta = {
+        "source": args.zoo or args.net,
+        "inputs": (["frames_u8 (N,S,H,W,3) BGR", "h_off (N,)", "w_off (N,)", "mirror (N,)"]
+                   if args.uint8 else ["clips (N,S,crop,crop,3) BGR, mean-subtracted"]),
+        "in_avals": [{"shape": [str(d) for d in v.shape], "dtype": str(v.dtype)}
+                     for v in in_specs],
+        "output": "class probabilities (N, num_classes)",
+        "mean_bgr": mean_bgr,
+        "load": "torch.export.load(path), torch.export.passes.move_to_device_pass"
+                "(ep, 'cuda' or 'cpu'), then .module()",
+        "bf16": args.bf16,
+        "int8": bool(args.int8),
+        "classes": _read_class_names(args.classes) if args.classes else None,
+    }
+    with open(args.output + ".json", "w") as f:
+        json.dump(meta, f, indent=1)
+    shapes = ", ".join(str(tuple(v.shape)) for v in in_specs)
+    print(f"wrote {args.output}: {nbytes/1e6:.1f} MB, in=({shapes}); "
+          f"contract -> {args.output}.json")
+
+
 def cmd_upgrade(args):
     """V1-text -> V2-text prototxt upgrade (upgrade_net_proto_text.cpp).
 
@@ -837,10 +1024,10 @@ def main(argv=None):
     sp.add_argument("--caffe-weights", default=None)
     sp.add_argument("--snapshot", default=None)
     sp.add_argument("--dp", type=int, default=1,
-                    help="data-parallel over N devices (0 = all devices); "
-                         f"only 1 is ported ({_ITEM5})")
+                    help="data-parallel over N devices (0 = all devices), one rank a "
+                         "device, SyncBN; spawned here, or under torchrun")
     sp.add_argument("--tp", type=int, default=1,
-                    help=f"tensor-parallel over N devices; only 1 is ported ({_ITEM5})")
+                    help="tensor-parallel over N devices (channel-sharded weights)")
     sp.add_argument("--no-overlap", action="store_true",
                     help="disable the async feed pipeline (device batch "
                          "prefetch + one-step-lagged metric reads); loss "
@@ -856,9 +1043,9 @@ def main(argv=None):
     sp.add_argument("--weights", required=True)
     sp.add_argument("--iterations", type=int, default=50)
     sp.add_argument("--dp", type=int, default=1,
-                    help=f"data-parallel eval over N devices; only 1 is ported ({_ITEM5})")
+                    help="data-parallel eval over N devices (0 = all devices)")
     sp.add_argument("--tp", type=int, default=1,
-                    help=f"tensor-parallel eval; only 1 is ported ({_ITEM5})")
+                    help="tensor-parallel eval over N devices")
     sp.set_defaults(fn=cmd_test)
 
     sp = sub.add_parser("time")
@@ -949,10 +1136,41 @@ def main(argv=None):
     sp.add_argument("-o", "--output", required=True)
     sp.set_defaults(fn=cmd_export)
 
-    sub.add_parser(
-        "aot",
-        help=f"a deployable serving artifact: not ported yet ({_ITEM5}, torch.export)",
+    sp = sub.add_parser(
+        "aot",  # torch.export serving artifact (deploy prototxt+caffemodel analogue)
+        help="export an inference graph + weights to one torch.export serving "
+             "artifact (.pt2); runs anywhere with torch alone",
     )
+    common(sp)
+    sp.add_argument("--weights", required=True)
+    sp.add_argument("--bf16", action="store_true", help="export the model in bfloat16")
+    sp.add_argument("--no-optimize", dest="optimize", action="store_false",
+                    help="skip sibling-1x1 merge + BN fold before export")
+    sp.add_argument("--dynamic-batch", action="store_true",
+                    help="symbolic batch dim: one artifact, any batch size")
+    sp.add_argument("--uint8", action="store_true",
+                    help="bake the uint8 crop/mean preprocess into the artifact "
+                         "(raw resized frames + offsets in)")
+    sp.add_argument("--int8", action="store_true",
+                    help="post-training int8 quantize before export (calibrates on "
+                         "--list batches, else random); with --uint8 the input "
+                         "plane is int8 too")
+    sp.add_argument("--calib-batches", type=int, default=4,
+                    help="--int8 calibration batch count from --list")
+    sp.add_argument("--frame-h", type=int, default=256)
+    sp.add_argument("--frame-w", type=int, default=340)
+    sp.add_argument("--crop", type=int, default=None,
+                    help="--zoo input crop size (default: the zoo model's 224); "
+                         "--net graphs declare their own input shape")
+    sp.add_argument("--mean", default=None,
+                    help="comma BGR mean to bake into --uint8 preprocess / record in "
+                         "the sidecar (default: the graph's transform_param "
+                         "mean_value, else 104,117,123)")
+    sp.add_argument("--classes", default=None,
+                    help="class-name list file to embed in the contract sidecar "
+                         "(<output>.json)")
+    sp.add_argument("-o", "--output", required=True)
+    sp.set_defaults(fn=cmd_aot)
 
     sp = sub.add_parser(
         "plot",
@@ -1019,11 +1237,6 @@ def main(argv=None):
     sp.set_defaults(fn=cmd_extract)
 
     args, rest = p.parse_known_args(argv)
-    if args.cmd == "aot":
-        raise SystemExit(
-            f"eco aot: the serving artifact (StableHLO in eco_tpu, torch.export "
-            f"here) is not ported yet ({_ITEM5})"
-        )
     if rest:
         p.error(f"unrecognized arguments: {' '.join(rest)}")
     return args.fn(args)

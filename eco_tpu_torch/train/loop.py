@@ -6,9 +6,9 @@ Twin of ``eco_tpu/train/loop.py``.  Mirrored: ``iter_size`` micro-batching
 solver.cpp:230-239), the display interval with lr reporting, periodic test
 passes averaging the metric tops (solver.cpp:450-518), the snapshot interval
 and final snapshot, resume from a solverstate, and the non-finite-loss
-guard, and rematerialization from the graph's ``mem_param``.  The
-data-parallel mesh and tensor parallelism are not ported yet: asking for
-them raises.
+guard, rematerialization from the graph's ``mem_param``, and training and
+testing over a mesh (``Trainer(mesh=)``: data parallelism with SyncBN, or
+DP x TP when the mesh has a ``model`` axis; snapshots by rank 0 only).
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ import torch
 
 from eco_tpu_torch.runtime.memory import remat_policy_from_graph
 from eco_tpu_torch.train.checkpoint import load_model, restore, save_model, snapshot
+from eco_tpu_torch.utils.logging import rank as _rank
 from eco_tpu_torch.train.solver import (
     SolverConfig,
     TrainState,
@@ -66,11 +67,6 @@ def solver_config_from_prototxt(text: str) -> SolverConfig:
     )
 
 
-def _rank() -> int:
-    dist = torch.distributed
-    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
-
-
 class Trainer:
     """Drives train/test programs against data iterators.
 
@@ -101,11 +97,25 @@ class Trainer:
         if remat == "auto":
             # mem_param { optimize_train: true } in the graph -> remat
             remat = remat_policy_from_graph(train_program.graph)
-        if mesh is not None:
-            raise NotImplementedError("data/tensor-parallel training is not ported yet")
         self.remat = remat
-        self.step = step_fn or make_train_step(train_program, cfg, remat=remat)
-        self.eval_step = make_eval_step(test_program) if test_program is not None else None
+        self.dist = None
+        if mesh is not None:
+            if not getattr(mesh, "mesh_dim_names", None):
+                raise TypeError("mesh must be a DeviceMesh with named axes (parallel.make_mesh)")
+            from eco_tpu_torch.parallel.mesh import MODEL_AXIS
+            from eco_tpu_torch.parallel.shard import DataParallel
+            from eco_tpu_torch.parallel.tp import TensorParallel
+
+            # a ``model`` axis: DP x TP, weights, momentum and BN state
+            # channel-sharded (pass a shard_tp_train_state'd TrainState);
+            # else data parallelism with SyncBN.  Each rank passes its slice
+            # of every batch; the eval tops average over the global batch
+            # (SyncOutput/SyncLoss)
+            self.dist = (TensorParallel if MODEL_AXIS in mesh.mesh_dim_names
+                         else DataParallel)(mesh)
+        self.step = step_fn or make_train_step(train_program, cfg, remat=remat, dist=self.dist)
+        self.eval_step = (make_eval_step(test_program, dist=self.dist)
+                          if test_program is not None else None)
         self.log = log_fn
         if metrics_lag not in (0, 1):
             raise ValueError(f"metrics_lag must be 0 or 1, got {metrics_lag}")
@@ -232,6 +242,9 @@ class Trainer:
     def _snapshot(self, ts: TrainState):
         # only rank 0 writes (rank-0 snapshot of the reference,
         # solver.cpp:523-546); the other ranks hold the same state
+        gather = getattr(self.dist, "gather_train_state", None)
+        if gather is not None:
+            ts = gather(ts)  # every rank takes part; rank 0 writes the full state
         rank = self.process_index if self.process_index is not None else _rank()
         if rank != 0:
             return

@@ -32,6 +32,7 @@ from typing import Any, Mapping, Optional
 
 import torch
 
+from eco_tpu_torch.runtime.executor import Collectives
 from eco_tpu_torch.runtime.memory import apply_with_remat
 from eco_tpu_torch.spec.graph import GraphSpec, ParamSpec
 from eco_tpu_torch.train.lr_policies import learning_rate
@@ -100,7 +101,8 @@ def init_train_state(params, state) -> TrainState:
     return TrainState(params, state, history, 0)
 
 
-def make_train_step(program, cfg: SolverConfig, *, remat: Optional[str] = None):
+def make_train_step(program, cfg: SolverConfig, *, remat: Optional[str] = None,
+                    dist: Optional[Collectives] = None):
     """Returns ``step(ts, batch, generator) -> (ts, metrics)``.
 
     ``batch`` values carry a leading micro-batch axis of length
@@ -110,8 +112,13 @@ def make_train_step(program, cfg: SolverConfig, *, remat: Optional[str] = None):
     ``lr`` and ``grad_norm`` (0 without clipping), as tensors.  ``remat``
     is a policy of ``runtime/memory.py`` ("dots", "nothing", "everything"
     or None); it changes the step's memory and time, not its values.
+    ``dist`` makes it one rank's step of a mesh (``eco_tpu_torch.parallel``):
+    the forward runs under it, the accumulated gradients are reduced across
+    the ranks before the clip (so every rank clips by the same global
+    norm), and the reported loss is reduced as well.
     """
     apply = apply_with_remat(program, remat)
+    dist = dist or Collectives()
     solver_type = cfg.solver_type.lower()
     if solver_type not in ("sgd", "nesterov", "adagrad"):
         raise ValueError(f"unknown solver_type {cfg.solver_type!r}")
@@ -152,7 +159,7 @@ def make_train_step(program, cfg: SolverConfig, *, remat: Optional[str] = None):
         for i in range(cfg.iter_size):
             micro = {k: v[i] for k, v in batch.items()}
             with torch.enable_grad():
-                outs, state = apply(params, state, micro, generator=generator)
+                outs, state = apply(params, state, micro, generator=generator, dist=dist)
                 loss = program.total_loss(outs)
                 grads = torch.autograd.grad(loss, leaves, allow_unused=True)
             grads = [torch.zeros_like(w) if g is None else g for w, g in zip(leaves, grads)]
@@ -160,9 +167,10 @@ def make_train_step(program, cfg: SolverConfig, *, remat: Optional[str] = None):
             losses.append(loss.detach())
 
         with torch.no_grad():
+            gsum = dist.reduce_grads(keys, gsum)
             # 2. global-norm clip on the ACCUMULATED grads (solver.cpp:636-659)
             if cfg.clip_gradients > 0:
-                gnorm = torch.sqrt(sum(g.float().square().sum() for g in gsum))
+                gnorm = torch.sqrt(dist.sq_norm(keys, gsum))
                 clip = torch.full_like(gnorm, cfg.clip_gradients)
                 scale = torch.where(gnorm > clip, clip / gnorm, torch.ones_like(gnorm))
                 gsum = [g * scale for g in gsum]
@@ -176,19 +184,23 @@ def make_train_step(program, cfg: SolverConfig, *, remat: Optional[str] = None):
                                     lr_tree[ln][pn], decay_tree[ln][pn])
                 new_params.setdefault(ln, {})[pn] = nw
                 new_history.setdefault(ln, {})[pn] = nh
-        metrics = {"loss": torch.stack(losses).mean(), "lr": rate, "grad_norm": gnorm}
+        metrics = {"loss": dist.reduce_metric(torch.stack(losses).mean()), "lr": rate,
+                   "grad_norm": gnorm}
         return TrainState(new_params, state, new_history, ts.it + 1), metrics
 
     return step
 
 
-def make_eval_step(program):
+def make_eval_step(program, *, dist: Optional[Collectives] = None):
     """Test-phase forward collecting the graph's scalar metric tops
-    (Solver::Test, solver.cpp:450-518)."""
+    (Solver::Test, solver.cpp:450-518).  Under ``dist`` each rank runs its
+    slice of the batch and the tops are averaged over the global batch (the
+    reference's SyncOutput/SyncLoss, solver.cpp:372-392)."""
+    dist = dist or Collectives()
 
     def eval_step(params, state, batch):
         with torch.no_grad():
-            outs, _ = program.apply(params, state, batch)
-        return {k: v for k, v in outs.items() if v.ndim == 0}
+            outs, _ = program.apply(params, state, batch, dist=dist)
+        return {k: dist.reduce_metric(v) for k, v in outs.items() if v.ndim == 0}
 
     return eval_step

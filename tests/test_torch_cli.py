@@ -6,8 +6,8 @@ planes, a snapshot from one ``--weights`` file held to the JAX CLI's within
 then ``test``, ``convert``/``parity``/``export``/``fold`` on
 ``tests/fixtures/mini_eco.*`` against ``eco_tpu``'s, ``upgrade``/``plot``/
 ``draw`` output equal to the reference's, cross-layer shared params and the
-stochastic layers against ``eco_tpu``'s executor, the exits of what is not
-ported, and the copied modules held line for line."""
+stochastic layers against ``eco_tpu``'s executor, the CLI's exits for
+``--dp``/``--tp``, and the copied modules held line for line."""
 
 import json
 import re
@@ -273,12 +273,19 @@ def test_upgrade_plot_and_draw_write_what_the_reference_writes(dataset, tmp_path
 
 
 def test_what_is_not_ported_exits_naming_its_roadmap_item(dataset, tmp_path, capsys):
+    """Everything is ported now (``aot``, ``--dp``/``--tp``:
+    tests/test_torch_export.py, tests/test_torch_multiprocess.py); the exits
+    left are the reference's own, for a batch ``--dp`` does not divide and
+    for more ranks than devices."""
     net, solver = _cfg(tmp_path, dataset, "snap")
-    for argv in (["aot", "--zoo", "eco_lite_kinetics", "--weights", "w.npz", "-o", "x"],
-                 ["train", "--solver", solver, "--net", net, "--dp", "2", *CPU],
-                 ["train", "--solver", solver, "--net", net, "--tp", "2", *CPU],
-                 ["test", "--net", net, "--weights", "w.npz", "--dp", "4", *CPU]):
-        with pytest.raises(SystemExit, match="item 5"):
+    for argv, match in (
+            (["train", "--solver", solver, "--net", net, "--dp", "2", *CPU],
+             "--dp 2 must divide the batch size 3"),
+            (["train", "--solver", solver, "--net", net, "--dp", "3", "--tp", "100000", *CPU],
+             "exceeds the"),
+            (["test", "--net", net, "--weights", "w.npz", "--dp", "4", *CPU],
+             "--dp 4 must divide the batch size 3")):
+        with pytest.raises(SystemExit, match=match):
             main(argv)
     # --dp 0 means every visible device: one here
     assert main(["train", "--solver", solver, "--net", net, "--dp", "0", *CPU]).it == 2

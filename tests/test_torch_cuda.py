@@ -1,6 +1,7 @@
 """eco_tpu_torch on a CUDA device: the hand-written kernels (K1, K2, K3)
-against their plain versions, and the serving path and a train step on the
-card against the same on the CPU.
+against their plain versions, the serving path and a train step on the
+card against the same on the CPU, and the world-1 NCCL data-parallel step
+against the plain one.
 
 These tests need an NVIDIA GPU and nvcc, and skip without them.  The file
 imports no JAX, so it also runs where JAX is not installed:
@@ -621,6 +622,172 @@ def test_remat_step_on_card_equals_the_plain_step(cuda):
         for ln in want.params:
             for k in want.params[ln]:
                 assert torch.equal(got.params[ln][k], want.params[ln][k]), (policy, ln, k)
+
+
+def test_world1_nccl_dp_step_equals_the_plain_step(cuda):
+    """A world-1 NCCL group on the card: the data-parallel step (SyncBN, the
+    gradient all-reduce before the clip) gives the plain step's loss, params
+    and BN statistics bit for bit under cudnn.deterministic: every
+    all-reduce of one rank is the identity and the division by 1 is exact."""
+    import socket
+
+    from eco_tpu_torch.parallel import distributed_init, make_mesh, make_sharded_train_step
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    graph = build_eco_lite(400, 4, crop_size=64, with_loss=True, batch=2, dropout_ratio=0.5)
+    prog = RawPreprocessProgram(
+        Program(graph, train=True, compute_dtype=torch.bfloat16, device=cuda), crop=64)
+    frames, h_off, w_off, mirror = _batch(cuda, 2, 4, 80, 96, 64)
+    batch = {"data": frames[None], "h_off": h_off[None], "w_off": w_off[None],
+             "mirror": mirror[None], "label": torch.tensor([[3, 397]], device=cuda)}
+    ts = init_train_state(*prog.init(torch.Generator().manual_seed(0),
+                                     {k: v[0] for k, v in batch.items()}))
+    cfg = SolverConfig(clip_gradients=40.0)
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    distributed_init(device="cuda:0", init_method=f"tcp://localhost:{port}", world_size=1,
+                     rank=0)
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        want, wm = make_train_step(prog, cfg)(ts, batch, torch.Generator().manual_seed(7))
+        got, gm = make_sharded_train_step(prog, cfg, make_mesh())(
+            ts, batch, torch.Generator().manual_seed(7))
+    finally:
+        torch.distributed.destroy_process_group()
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    assert torch.equal(gm["loss"], wm["loss"])
+    for tree in ("params", "state"):
+        for ln, lp in getattr(want, tree).items():
+            for k, v in lp.items():
+                assert torch.equal(getattr(got, tree)[ln][k], v), (tree, ln, k)
+
+
+def _every_card_rank(rank, world, port, outdir):
+    """One rank a card over NCCL: one f32 data-parallel step with SyncBN of
+    ECO-Lite at crop 64 on its 2 videos of the seeded global batch."""
+    from eco_tpu_torch.parallel import (
+        distributed_init, make_mesh, make_sharded_train_step, shard_batch,
+    )
+    from eco_tpu_torch.parallel.multiprocess import params_digest
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = f"cuda:{rank}"
+    distributed_init(device=dev, init_method=f"tcp://localhost:{port}", world_size=world,
+                     rank=rank)
+    try:
+        prog, ts, batch = _every_card_setup(dev, 2 * world)
+        mesh = make_mesh()
+        ts, m = make_sharded_train_step(prog, SolverConfig(clip_gradients=40.0), mesh)(
+            ts, shard_batch(mesh, batch, batch_axis=1))
+        torch.save({"digest": params_digest(ts.params), "loss": float(m["loss"]),
+                    "params": {ln: {k: v.cpu() for k, v in lp.items()}
+                               for ln, lp in ts.params.items()}},
+                   f"{outdir}/{rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _every_card_setup(dev, videos):
+    graph = build_eco_lite(400, 4, crop_size=64, with_loss=True, batch=videos,
+                           dropout_ratio=0.0)
+    prog = Program(graph, train=True, device=dev)
+    gen = torch.Generator().manual_seed(0)
+    batch = {"data": torch.randn((1, videos, 4, 64, 64, 3), generator=gen) * 50,
+             "label": torch.randint(0, 400, (1, videos), generator=gen)}
+    ts = init_train_state(*prog.init(torch.Generator().manual_seed(0),
+                                     {k: v[0] for k, v in batch.items()}))
+    return prog, ts, batch
+
+
+def test_nccl_data_parallel_over_every_card(tmp_path):
+    """One rank a card over NCCL (needs two cards or more): every rank ends
+    with the same params, and the update is within 5e-2 of one process's
+    f32 step over the global batch (the f32 order bound)."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    world = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if world < 2:
+        pytest.skip("needs two CUDA devices or more")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    mp.start_processes(_every_card_rank, args=(world, port, str(tmp_path)), nprocs=world,
+                       start_method="spawn")
+    ranks = [torch.load(tmp_path / f"{r}.pt") for r in range(world)]
+    assert len({r["digest"] for r in ranks}) == 1
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    prog, ts, batch = _every_card_setup("cuda:0", 2 * world)
+    one, _ = make_train_step(prog, SolverConfig(clip_gradients=40.0))(ts, batch)
+    keys = [(ln, k) for ln in sorted(ts.params) for k in sorted(ts.params[ln])]
+    start = torch.cat([ts.params[ln][k].flatten().cpu() for ln, k in keys])
+    want = torch.cat([one.params[ln][k].flatten().cpu() for ln, k in keys]) - start
+    got = torch.cat([ranks[0]["params"][ln][k].flatten() for ln, k in keys]) - start
+    assert ((got - want).norm() / want.norm()).item() <= F32_UPDATE_REL_L2_BOUND
+
+
+def test_multiprocess_trains_one_process_a_card(cuda, tmp_path):
+    """``python -m eco_tpu_torch.parallel.multiprocess`` on its default
+    device: one process a card over NCCL, cursor-sharded pipelines, equal
+    params digests and snapshots from process 0 alone."""
+    from eco_tpu_torch.parallel.multiprocess import launch_simulated_multihost
+
+    n = torch.cuda.device_count()
+    info = launch_simulated_multihost(n, workdir=str(tmp_path), timeout=300, iters=2)
+    assert info["ok"] and info["device"] == "cuda" and info["num_processes"] == n
+    assert info["snapshots"] == ["mh_iter_2.model.npz", "mh_iter_2.solverstate.npz"]
+    with pytest.raises(ValueError, match="cards"):
+        launch_simulated_multihost(n + 1, workdir=str(tmp_path / "x"))
+
+
+def test_aot_optimizes_and_calibrates_on_the_card(cuda, tmp_path):
+    """``eco aot`` on its default device: the weights load, fold and
+    calibrate on the card, the trace runs on CPU copies.  The float artifact
+    equals the one made with ``--device cpu`` within the f32 card-vs-CPU
+    bound (1e-4).  The ``--int8`` one (plain K3 inside) equals, within the
+    int8 card bound (2.2e-2), the program that the CLI's calibration gives
+    on the card, run through K3: calibrated on the card (TF32 convs), its
+    scales are not the CPU's."""
+    from eco_tpu_torch.convert import load_serving_artifact
+    from eco_tpu_torch.spec.graph import graph_to_json
+    from eco_tpu_torch.tools.cli import main
+    from eco_tpu_torch.train import load_model, save_model
+
+    graph = build_eco_lite(10, 4, crop_size=64, with_loss=False, batch=2)
+    gpath = tmp_path / "lite.graph.json"
+    gpath.write_text(graph_to_json(graph))
+    wpath = str(tmp_path / "lite.npz")
+    save_model(wpath, *Program(graph, device="cpu").init(torch.Generator().manual_seed(0),
+                                                         {"data": graph.inputs["data"]}))
+    clips = torch.randn((2, 4, 64, 64, 3), generator=torch.Generator().manual_seed(1)) * 50
+    argv = ["aot", "--net", str(gpath), "--weights", wpath, "--batch", "2", "--segments", "4"]
+
+    def artifact(name, *extra):
+        main([*argv, "-o", str(tmp_path / name), *extra])
+        return load_serving_artifact(str(tmp_path / name), device="cuda")(clips).float().cpu()
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    card = artifact("card.pt2")
+    assert tuple(card.shape) == (2, 10) and torch.isfinite(card).all()
+    assert rel(card, artifact("cpu.pt2", "--device", "cpu")) <= 1e-4
+    # the CLI's int8 path on the card, reproduced: fold, calibrate on its
+    # seeded random batch, quantize
+    got = artifact("int8.pt2", "--int8")
+    folded = optimize_for_inference(graph, *load_model(wpath, device=cuda))
+    calib = {"data": (60.0 * torch.randn(graph.inputs["data"],
+                                         generator=torch.Generator().manual_seed(0))).to(cuda)}
+    with torch.no_grad():
+        qprog, qp, qs, _ = quantize_for_serving(Program(folded[0], device=cuda), *folded[1:],
+                                                [calib])
+        want = qprog.apply(qp, qs, {"data": clips.to(cuda)})[0]["probs"].float().cpu()
+    assert rel(got, want) <= 2.2e-2
 
 
 def test_time_layers_on_card_is_above_every_floor(cuda):

@@ -23,7 +23,7 @@ import eco_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(eco_tpu_torch.__path__, "eco_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 67, names
+assert len(names) >= 76, names
 assert {"eco_tpu_torch.ops.quant", "eco_tpu_torch.ops.qconv",
         "eco_tpu_torch.convert.quantize", "eco_tpu_torch.spec.graph",
         "eco_tpu_torch.spec.prototxt", "eco_tpu_torch.models.zoo",
@@ -34,7 +34,11 @@ assert {"eco_tpu_torch.ops.quant", "eco_tpu_torch.ops.qconv",
         "eco_tpu_torch.ops.resize", "eco_tpu_torch.convert.write",
         "eco_tpu_torch.tools.cli", "eco_tpu_torch.tools.memreport",
         "eco_tpu_torch.tools.datasets", "eco_tpu_torch.tools.logparse",
-        "eco_tpu_torch.tools.draw"} <= set(names), names
+        "eco_tpu_torch.tools.draw", "eco_tpu_torch.parallel",
+        "eco_tpu_torch.parallel.mesh", "eco_tpu_torch.parallel.shard",
+        "eco_tpu_torch.parallel.tp", "eco_tpu_torch.parallel.pp",
+        "eco_tpu_torch.parallel.multiprocess", "eco_tpu_torch.convert.export",
+        "eco_tpu_torch.utils.logging", "eco_tpu_torch.ops.collectives"} <= set(names), names
 """
 
 _IMPORT_CHIP_SMOKE = """

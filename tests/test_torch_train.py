@@ -108,7 +108,9 @@ def test_bn_train_matches_jax(shape):
     got = ops.bn_train(*(torch.from_numpy(a) for a in (x, gamma, beta, rm, rv)), momentum=0.8)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL, atol=ATOL)
-    with pytest.raises(NotImplementedError, match="SyncBN"):
+    # SyncBN takes a process group or a mesh dimension (tests/test_torch_parallel.py);
+    # a bare axis name names no group in torch
+    with pytest.raises(TypeError, match="SyncBN"):
         ops.bn_train(*(torch.from_numpy(a) for a in (x, gamma, beta, rm, rv)), axis_name="data")
 
 
@@ -446,7 +448,8 @@ def test_step_rejects_what_is_not_ported():
         make_train_step(Program(g, train=True, device="cpu"), SolverConfig(), remat="dot")
     with pytest.raises(ValueError, match="solver_type"):
         make_train_step(Program(g, train=True, device="cpu"), SolverConfig(solver_type="adam"))
-    with pytest.raises(NotImplementedError, match="parallel"):
+    # Trainer(mesh=) trains over a DeviceMesh (tests/test_torch_parallel.py)
+    with pytest.raises(TypeError, match="make_mesh"):
         Trainer(Program(g, train=True, device="cpu"), SolverConfig(), mesh=object())
 
 
