@@ -142,7 +142,34 @@ Phases (every failure raises; the exit code is then non-zero):
     artifact (``torch.export``) at batch 8, a dynamic-batch one and the int8
     one, loaded and run on the card by a fresh ``python3`` that cannot
     import eco_tpu_torch, eco_tpu or jax, held to the servers' outputs and
-    timed beside ``UInt8Server``.  Prints one ``{"parallel": ...}`` line.
+    timed beside ``UInt8Server``; and the bf16 artifact loaded by a fresh
+    ``python3`` that imports eco_tpu_torch and builds ``UInt8Server`` for the
+    same graph and weights on its own cuDNN state: their logits equal
+    (``torch.equal``).  Prints one ``{"parallel": ...}`` line.
+
+17. Phase ``examples``: first one int8 forward of ``quantized_serving``'s
+    graph at the phase's width, in this process, each K3 call equal to its
+    plain version.  Then the four workflows of ``eco_tpu_torch.examples``,
+    each run as a user runs it, ``python3 -m eco_tpu_torch.examples.<name>
+    --device cuda``, at published widths: ``train_synthetic`` (16 segments,
+    batch 8, 15 iterations: losses finite and falling, test metrics finite),
+    ``serve_streams`` (64 streams, 16 segments, 3 ticks: every stream a label
+    in the class range), ``quantized_serving`` (crop 224, 16 segments, batch
+    8: int8 and bf16 agree in argmax on every video whose bf16 margin is
+    above ``QS_ARGMAX_MARGIN``, and in logits within the int8-vs-float
+    bound, K3 once an int8 layer a forward) and ``aot_artifact`` (the same
+    width, ``--dynamic-batch``: the destination's probs within 1e-2, its
+    logits artifact equal to the live program's logits, both dynamic batch
+    sizes).  Each reports its K1 and K3 launches from its own counters.
+    Prints one ``{"examples": ...}`` line.
+18. Phase ``int8_probe``: K3 at the probe's conv, (1536, 28, 28, 96) 3x3 pad
+    1 -> 96 with the int8-out epilogue, equal to its plain version; one
+    request of the probe's batch-96 servers, built in this process, through
+    each: K1's bf16 and int8 clips and every K3 call equal to their plain
+    versions; then ``python3 -m eco_tpu_torch.tools.int8_probe --device
+    cuda`` at the reference's defaults (4096^3 products, that conv, ECO-Lite
+    at batch 96 in bf16 and int8: K1 once a request, K3 once an int8 layer).
+    Prints one ``{"int8_probe": ...}`` line.
 
 Prints a ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it fails and
@@ -188,6 +215,7 @@ from eco_tpu_torch.data import (
 )
 from eco_tpu_torch.models import build_eco_lite, get_model
 from eco_tpu_torch.apps import serving
+from eco_tpu_torch.examples import quantized_serving
 from eco_tpu_torch.ops import _build, pool, poolfuse, preprocess, qconv, resize
 from eco_tpu_torch.parallel import (
     DATA_AXIS,
@@ -209,7 +237,7 @@ from eco_tpu_torch.runtime import Program, get_impl, memory
 from eco_tpu_torch.runtime.executor import Context
 from eco_tpu_torch.spec.graph import GraphSpec, LayerSpec, graph_to_json
 from eco_tpu_torch.spec.prototxt import graph_from_prototxt
-from eco_tpu_torch.tools import cli, memreport
+from eco_tpu_torch.tools import cli, int8_probe, memreport
 from eco_tpu_torch.train import SolverConfig, Trainer, init_train_state, make_train_step
 from eco_tpu_torch.utils.shapes import normalize_spatial_param
 
@@ -2476,6 +2504,30 @@ assert not [m for m, v in sys.modules.items() if m.startswith(("eco_tpu", "jax")
 """
 
 
+# the artifact beside UInt8Server in one process: a fresh python3 that imports
+# eco_tpu_torch, builds the server for the same graph and weights under its
+# own cuDNN state (no autotuning), and runs one request through both
+_ARTIFACT_BESIDE_SERVER = r"""
+import sys
+import torch
+from torch.export.passes import move_to_device_pass
+from eco_tpu_torch.apps import UInt8Server
+from eco_tpu_torch.runtime import Program
+from eco_tpu_torch.spec.graph import graph_from_json
+path, weights, inputs, out_path, device, crop = sys.argv[1:7]
+w, d = torch.load(weights), torch.load(inputs)
+to = lambda tree: {ln: {k: v.to(device) for k, v in lp.items()} for ln, lp in tree.items()}
+server = UInt8Server(Program(graph_from_json(w["graph"]), device=device), to(w["params"]),
+                     to(w["state"]), crop=int(crop), mean=tuple(w["mean"]), output="fc8")
+with torch.no_grad():
+    want = server(d["frames"], h_off=d["h_off"], w_off=d["w_off"], mirror=d["mirror"])
+    mod = move_to_device_pass(torch.export.load(path), device).module()
+    got = mod(d["frames"].to(device), d["h_off"].to(device, torch.int32),
+              d["w_off"].to(device, torch.int32), d["mirror"].to(device, torch.bool))
+torch.save({"server": want.cpu(), "artifact": got.cpu()}, out_path)
+"""
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -2697,7 +2749,11 @@ def _artifacts(dev, card: str, reqs, lite, int8_lite) -> dict:
     Each returns the ``fc8`` logits, held to UInt8Server's: bf16 within
     BF16_LOGITS_REL_L2_BOUND, int8 within INT8_CARD_VS_CPU_REL_L2_BOUND.
     The bf16 artifact must also be nearer its server than the server fed
-    either of two planted faults (mirror flipped, mean off by one)."""
+    either of two planted faults (mirror flipped, mean off by one), and
+    equal (``torch.equal``) to the UInt8Server that a fresh python3 with
+    eco_tpu_torch builds for the same graph and weights beside it: one
+    process, one cuDNN state, so any gap to this process's server is that
+    server's algorithm choice, not the artifact."""
     graph, params, state = lite
     prog16 = Program(graph, compute_dtype=torch.bfloat16, device=dev)
     kw = dict(batch=BATCH, segments=SEGMENTS, crop=CROP, uint8=True, frame_hw=(HEIGHT, WIDTH),
@@ -2737,6 +2793,18 @@ def _artifacts(dev, card: str, reqs, lite, int8_lite) -> dict:
             raise AssertionError(f"the artifact loader failed: {proc.stderr[-3000:]}")
         loader_s = time.perf_counter() - t0
         got = torch.load(os.path.join(tmp, "outputs.pt"))
+        torch.save({"graph": graph_to_json(graph), "params": _to(params, "cpu"),
+                    "state": _to(state, "cpu"), "mean": MEAN}, os.path.join(tmp, "weights.pt"))
+        proc = subprocess.run(
+            [sys.executable, "-c", _ARTIFACT_BESIDE_SERVER, paths["static"],
+             os.path.join(tmp, "weights.pt"), os.path.join(tmp, "inputs.pt"),
+             os.path.join(tmp, "beside.pt"), dev.type, str(CROP)],
+            capture_output=True, text=True, timeout=ARTIFACT_TIMEOUT_S)
+        if proc.returncode != 0:
+            raise AssertionError(f"the artifact beside its server failed: {proc.stderr[-3000:]}")
+        beside = torch.load(os.path.join(tmp, "beside.pt"))
+    # one process, one cuDNN state: the artifact must give its server's logits
+    beside_equal = torch.equal(beside["artifact"], beside["server"])
     rel = {"static": _rel_l2(got["static"], want),
            "dynamic4": _rel_l2(got["dynamic4"], want[:4]),
            "dynamic8": _rel_l2(got["dynamic8"], want),
@@ -2750,7 +2818,12 @@ def _artifacts(dev, card: str, reqs, lite, int8_lite) -> dict:
           f"{ {k: round(v / 2**20, 1) for k, v in sizes.items()} } MiB, export + save "
           f"{ {k: round(v, 1) for k, v in export_s.items()} } s; loaded in a python3 without "
           f"eco_tpu_torch ({loader_s:.1f} s, load "
-          f"{ {k: round(got[k + '_load_s'], 1) for k in paths} } s); fc8 logits rel L2 against "
+          f"{ {k: round(got[k + '_load_s'], 1) for k in paths} } s); in a python3 with "
+          f"eco_tpu_torch, the bf16 artifact and UInt8Server on its own cuDNN state give equal "
+          f"fc8 logits: {beside_equal} (that server {_rel_l2(beside['server'], want):.3e} off "
+          f"this process's, whose cuDNN flags are benchmark {torch.backends.cudnn.benchmark}, "
+          f"deterministic {torch.backends.cudnn.deterministic}, allow_tf32 "
+          f"{torch.backends.cudnn.allow_tf32}); fc8 logits rel L2 against "
           f"the servers {rel} (bounds {BF16_LOGITS_REL_L2_BOUND} bf16, "
           f"{INT8_CARD_VS_CPU_REL_L2_BOUND} int8); the bf16 artifact's probs {probs_rel:.3e} "
           f"off the server's; its logits {fault_rel} off the server fed a planted fault; "
@@ -2762,12 +2835,17 @@ def _artifacts(dev, card: str, reqs, lite, int8_lite) -> dict:
               "dynamic8": BF16_LOGITS_REL_L2_BOUND, "int8": INT8_CARD_VS_CPU_REL_L2_BOUND}
     if not all(rel[k] <= bounds[k] for k in bounds):
         raise AssertionError(f"an artifact is off its server: {rel}")
+    if not beside_equal:
+        raise AssertionError("the bf16 artifact and UInt8Server in one process differ: rel L2 "
+                             f"{_rel_l2(beside['artifact'], beside['server'])}")
     if not rel["static"] < min(fault_rel.values()):
         raise AssertionError(f"the bf16 artifact ({rel['static']}) is nearer a planted fault "
                              f"than its server: {fault_rel}")
     if tuple(got["dynamic4"].shape) != (4, NUM_CLASSES):
         raise AssertionError(f"the dynamic artifact gave {tuple(got['dynamic4'].shape)}")
-    return {"rel_l2": rel, "probs_rel_l2": probs_rel, "fault_rel_l2": fault_rel, "ms": medians}
+    return {"rel_l2": rel, "probs_rel_l2": probs_rel, "fault_rel_l2": fault_rel, "ms": medians,
+            "beside_server_equal": beside_equal,
+            "beside_server_vs_autotuned_rel_l2": _rel_l2(beside["server"], want)}
 
 
 def parallel_phase(dev, card: str, reqs, lite, int8_lite) -> dict:
@@ -2799,11 +2877,204 @@ def parallel_phase(dev, card: str, reqs, lite, int8_lite) -> dict:
         "step_profile": train["profile"],
         "two_rank_update_rel_l2": two["update_rel_l2"], "artifact_rel_l2": art["rel_l2"],
         "artifact_probs_rel_l2": art["probs_rel_l2"], "artifact_fault_rel_l2": art["fault_rel_l2"],
+        "artifact_beside_server_equal": art["beside_server_equal"],
+        "beside_server_vs_autotuned_rel_l2": art["beside_server_vs_autotuned_rel_l2"],
         "artifact_ms": art["ms"], "pp_vs_batch_rel_l2": infer["pp_vs_batch_rel_l2"],
         "seconds": seconds, "card": card}}))
     return {"k1": {"parallel_plain": train["k1_plain"], "parallel_dp": train["k1_dp"],
                    "parallel_infer": infer["k1"], "parallel_two_ranks": two["k1_ranks"],
                    "parallel_one_process": two["k1_one"]}}
+
+
+# Phase ``examples``: each workflow as a user runs it, in its own python3, at
+# published widths (train_synthetic's classes and crop are its own)
+EXAMPLES = {
+    "train_synthetic": ["--segments", "16", "--batch", "8", "--iters", "15"],
+    "serve_streams": ["--streams", "64", "--segments", "16", "--ticks", "3"],
+    "quantized_serving": ["--crop", "224", "--segments", "16", "--batch", "8"],
+    "aot_artifact": ["--crop", "224", "--segments", "16", "--batch", "8", "--dynamic-batch"],
+}
+# what the {"examples": ...} line keeps of each workflow's result
+EXAMPLE_RATES = {"train_synthetic": ["videos_per_s"], "serve_streams": ["windows_per_s"],
+                 "quantized_serving": ["bf16_videos_per_s", "int8_videos_per_s"],
+                 "aot_artifact": ["max_abs_diff", "logits_max_abs_diff"]}
+EXAMPLE_TIMEOUT_S = 600
+# quantized_serving's argmax, int8 against bf16, is held on every video whose
+# bf16 top-1 margin is above this: 3x the largest max |int8 - bf16| logit
+# difference measured at the phase's width (0.158 on an H100 80GB HBM3 at
+# 700 W, where the margins were 3.1-3.4)
+QS_ARGMAX_MARGIN = 0.5
+# Phase ``int8_probe``: the probe's conv, the reference's serving shape, and
+# the batch of its end-to-end serving
+PROBE_CONV = dict(n=1536, hw=28, c=96)
+PROBE_BATCH = 96
+
+
+def _run_module(module: str, args, device: str) -> tuple[dict, float]:
+    """``python3 -m module args --device device`` in a fresh process: its
+    last line of output as JSON, and its wall seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module, *args, "--device", device],
+                          capture_output=True, text=True, timeout=EXAMPLE_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{module} exited {proc.returncode}:\n{proc.stdout[-2000:]}\n"
+                             f"{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1]), seconds
+
+
+def _falling(losses) -> bool:
+    """The mean of the last third of the losses below that of the first."""
+    k = max(1, len(losses) // 3)
+    return statistics.fmean(losses[-k:]) < statistics.fmean(losses[:k])
+
+
+def _flag(name: str, flag: str) -> int:
+    """The value of ``flag`` in the phase's arguments of workflow ``name``."""
+    args = EXAMPLES[name]
+    return int(args[args.index(flag) + 1])
+
+
+def _check_example(name: str, r: dict) -> None:
+    """Each workflow's result held as the phase states it.  aot_artifact's
+    destination process asserts its probs within 1e-2 (the reference's
+    bound) and exits non-zero otherwise; here its logits must be equal."""
+    if name == "train_synthetic":
+        ok = (all(map(math.isfinite, r["losses"])) and _falling(r["losses"])
+              and all(map(math.isfinite, r["metrics"].values())))
+    elif name == "serve_streams":
+        ok = (len(r["labels"]) == _flag(name, "--streams")
+              and all(0 <= label < r["num_classes"] for label in r["labels"]))
+    elif name == "quantized_serving":
+        held = [m > QS_ARGMAX_MARGIN for m in r["float_top1_margin"]]
+        ok = (2 * sum(held) >= len(held)
+              and all(eq for eq, h in zip(r["argmax_equal"], held) if h)
+              and r["logits_rel_l2"] <= INT8_VS_FLOAT_REL_L2_BOUND["eco_lite_kinetics"]
+              and r["k3_launches"] == r["quantized_layers"] * r["int8_forwards"] > 0)
+    else:
+        batch = _flag(name, "--batch")
+        ok = (r["logits_equal"]
+              and r["dynamic_shapes"] == {str(b): [b, NUM_CLASSES] for b in (2, batch + 2)})
+    if not ok:
+        raise AssertionError(f"example {name}: {r}")
+
+
+def _quantized_serving_held(dev) -> int:
+    """One int8 forward of the graph ``quantized_serving`` builds at the
+    phase's width, in this process, with every K3 call held to its plain
+    version (``torch.equal``).  Returns the calls held."""
+    name = "quantized_serving"
+    prog, params, state, data = quantized_serving.build(
+        _flag(name, "--segments"), _flag(name, "--batch"), _flag(name, "--crop"), dev)
+    r, (qprog, qp, qs, _) = quantized_serving.quantize_and_compare(prog, params, state, data)
+    with _k3_held() as checked, torch.no_grad():
+        qprog.apply(qp, qs, {"data": data})
+    if len(checked) != r["quantized_layers"]:
+        raise AssertionError(f"{name}: {len(checked)} K3 calls held to the plain version, "
+                             f"{r['quantized_layers']} int8 layers")
+    print(f"{name}'s int8 graph at {tuple(data.shape)}: each of the {len(checked)} K3 calls "
+          f"of one forward equals its plain version ({len(set(checked))} input shapes)")
+    return len(checked)
+
+
+def examples_phase(dev, card: str) -> dict:
+    """Phase ``examples``: the four workflows of ``eco_tpu_torch.examples``,
+    each run as ``python3 -m`` on the card at published widths and held to
+    its checks; K1's and K3's launches as each process counted them.
+    Prints one ``{"examples": ...}`` line and returns K3's launches."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    held = _quantized_serving_held(dev)
+    torch.cuda.empty_cache()
+    runs = {}
+    for name, args in EXAMPLES.items():
+        r, seconds = _run_module(f"eco_tpu_torch.examples.{name}", args, dev.type)
+        _check_example(name, r)
+        runs[name] = {"seconds": seconds, **{k: r[k] for k in EXAMPLE_RATES[name]},
+                      "k1_launches": r["k1_launches"], "k3_launches": r["k3_launches"]}
+        print(f"example {name} {' '.join(args)}: {seconds:.1f} s; "
+              f"{ {k: v for k, v in r.items() if k not in ('labels', 'top_scores')} }; {card}")
+    print(json.dumps({"examples": {**runs, "quantized_serving_k3_held": held,
+                                   "seconds": time.perf_counter() - t0, "card": card}}))
+    return {"k3": {"examples_quantized_serving": runs["quantized_serving"]["k3_launches"]}}
+
+
+def _probe_serving_held(dev) -> dict:
+    """The probe's batch-``PROBE_BATCH`` request, built in this process as the
+    probe builds it (``int8_probe.serving_setup``), through each server in
+    its two steps: K1's clips against its plain version, then the program
+    with every K3 call held to its plain version (all ``torch.equal``).
+    Returns the K1 and K3 calls held by server."""
+    servers, request, report = int8_probe.serving_setup(PROBE_BATCH, dev)
+    n, _, h, w, _ = request.shape
+    held = {}
+    for name, server in servers.items():
+        with torch.no_grad():
+            clips = server.clips(request)
+            want = preprocess.crop_normalize_reference(
+                request, [(h - server.crop) // 2] * n, [(w - server.crop) // 2] * n,
+                [False] * n, crop=server.crop, mean=server.mean, out_dtype=torch.bfloat16,
+                act_scale=server.in_scale)
+            k1_equal = torch.equal(clips, want)
+            with _k3_held() as checked:
+                server.program.apply(server.params, server.state, {"data": clips},
+                                     capture=[server.output])
+        k3_want = len(report["quantized"]) if name == "int8" else 0
+        print(f"int8_probe's {name} request {tuple(request.shape)}: K1 {clips.dtype} out "
+              f"{tuple(clips.shape)} equal to its plain version {k1_equal}; {len(checked)} K3 "
+              f"calls, each equal to its plain version ({len(set(checked))} input shapes)")
+        if not (k1_equal and clips.dtype == K1_TYPES[name][0] and len(checked) == k3_want):
+            raise AssertionError(f"int8_probe's {name} request: K1 equal {k1_equal} in "
+                                 f"{clips.dtype}, {len(checked)} K3 calls held of {k3_want}")
+        held[name] = {"k1": 1, "k3": len(checked)}
+        del clips, want
+    return held
+
+
+def int8_probe_phase(dev, card: str) -> dict:
+    """Phase ``int8_probe``: K3 held to its plain version at the probe's conv
+    shape, and K1 and K3 on one request of the probe's batch-96 serving
+    (``torch.equal``); then ``python3 -m eco_tpu_torch.tools.int8_probe`` at
+    the reference's defaults on the card.  Prints one ``{"int8_probe": ...}``
+    line and returns K1's and K3's launches."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _, _, x, w = int8_probe.conv_operands(**PROBE_CONV, device=dev)
+    ones = torch.ones(PROBE_CONV["c"], dtype=torch.float32, device=dev)
+    got = int8_probe.int8_conv_step(x, w, ones)
+    want = qconv.qconv_nd_reference(x, w, ones, None, pad=1,
+                                    out_scale=int8_probe.CONV_OUT_SCALE)
+    equal = torch.equal(got, want)
+    ops, moved = _k3_work(x, w, got)
+    bound_ms, bound_by = _bound_ms(moved, ops)
+    print(f"K3 at the probe's conv {tuple(x.shape)} 3x3 pad 1 -> {PROBE_CONV['c']}, int8 out "
+          f"at {int8_probe.CONV_OUT_SCALE}: equal to its plain version {equal}; bound "
+          f"{bound_ms:.4f} ms ({bound_by})")
+    if not equal:
+        raise AssertionError("K3 disagrees with its plain version at the probe's conv")
+    del x, w, got, want
+    torch.cuda.empty_cache()
+    held = _probe_serving_held(dev)
+    torch.cuda.empty_cache()
+    r, seconds = _run_module("eco_tpu_torch.tools.int8_probe", [], dev.type)
+    n_q = r["int8_quantized_layers"]
+    launches = {"k1": r["e2e_k1_launches"], "k3": {**r["e2e_k3_launches"],
+                                                   "conv": r["conv_k3_launches"]}}
+    numbers = [v for k, v in r.items() if isinstance(v, float)]
+    if not (all(math.isfinite(v) and v > 0 for v in numbers)
+            and launches["k1"] == {"bf16": r["e2e_requests"], "int8": r["e2e_requests"]}
+            and launches["k3"]["bf16"] == 0 and launches["k3"]["int8"] == n_q * r["e2e_requests"]
+            and held["int8"]["k3"] == n_q and launches["k3"]["conv"] > 0):
+        raise AssertionError(f"int8_probe: {r}")
+    print(f"int8_probe ({seconds:.1f} s): {r}; {card}")
+    print(json.dumps({"int8_probe": {**r, "conv_bound_ms": bound_ms, "held": held, "seconds":
+                                     time.perf_counter() - t0, "card": card}}))
+    return {"k1": {"int8_probe_bf16": launches["k1"]["bf16"],
+                   "int8_probe_int8": launches["k1"]["int8"]},
+            "k3": {"int8_probe_conv": launches["k3"]["conv"],
+                   "int8_probe_int8": launches["k3"]["int8"]},
+            "probe": {"matmul_int8_tops": r["matmul_int8_tops"],
+                      "conv_int8_ms": r["conv_int8_ms"], "conv_bound_ms": bound_ms}}
 
 
 def main() -> None:
@@ -2872,6 +3143,9 @@ def main() -> None:
     tail = tail_phase(dev, card, args.cli_tables)
     checked.update(tail["k1_record"])
     parallel = parallel_phase(dev, card, reqs, lite, int8_lite)
+    del reqs, lite, int8_lite
+    examples = examples_phase(dev, card)
+    probe = int8_probe_phase(dev, card)
     for name in ("jax", "eco_tpu"):
         if name in sys.modules:
             raise AssertionError(f"the port imported {name}")
@@ -2879,10 +3153,10 @@ def main() -> None:
                 "serve_k2": k1_k2serve, "serve_full": k1_full, "serve_full_k2": k1_full_k2,
                 "serve_int8_lite": k1_int8_lite, "serve_int8_full": k1_int8_full,
                 **online_counts["k1"], **k1_e2e, "remat": remat["k1"], **cli_counts["k1"],
-                **tail["k1"], **parallel["k1"]}
+                **tail["k1"], **parallel["k1"], **probe["k1"]}
     k2_paths = {"test": k2_test, "serve_k2": k2_serve, "serve_full_k2": k2_full}
     k3_paths = {"serve_int8_lite": k3_int8_lite, "serve_int8_full": k3_int8_full,
-                **online_counts["k3"], **cli_counts["k3"]}
+                **online_counts["k3"], **cli_counts["k3"], **examples["k3"], **probe["k3"]}
     records = [
         {
             "name": "crop_normalize",
@@ -2911,6 +3185,7 @@ def main() -> None:
             "launches_by_path": k3_paths,
             **qconv_checked,
             "request_ms": k3_request,
+            "probe": probe["probe"],
         },
     ]
     print(json.dumps({"kernels": records}))

@@ -805,3 +805,24 @@ def test_time_layers_on_card_is_above_every_floor(cuda):
     assert convs and all(np.isfinite(r[3]) for r in convs)
     with pytest.raises(RuntimeError, match="timer"):
         profiler._check_floor("conv", "forward", 1e-6, 1e9, 1e9, torch.bfloat16)
+
+
+def test_int8_probe_conv_step_equals_plain_version(cuda):
+    """The int8 probe's conv on the card: K3 at the reference's serving
+    shape, (1536, 28, 28, 96) 3x3 pad 1 -> 96, with the int8-out epilogue,
+    equal to its plain version; the probe's matmul step's shape is one
+    ``torch._int_mm`` takes."""
+    from eco_tpu_torch.tools import int8_probe
+
+    _, _, x, w = int8_probe.conv_operands(1536, 28, 96, cuda)
+    ones = torch.ones(96, dtype=torch.float32, device=cuda)
+    k3_0 = qconv.qconv_launches
+    got = int8_probe.int8_conv_step(x, w, ones)
+    assert qconv.qconv_launches == k3_0 + 1
+    want = qconv.qconv_nd_reference(x, w, ones, None, pad=1,
+                                    out_scale=int8_probe.CONV_OUT_SCALE)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    _, _, xi, wi = int8_probe.matmul_operands(256, cuda)
+    step = int8_probe.int8_matmul_step(xi, wi)
+    assert torch.equal(step.cpu(), int8_probe.int8_matmul_step(xi.cpu(), wi.cpu()))

@@ -23,7 +23,7 @@ import eco_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(eco_tpu_torch.__path__, "eco_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 76, names
+assert len(names) >= 82, names
 assert {"eco_tpu_torch.ops.quant", "eco_tpu_torch.ops.qconv",
         "eco_tpu_torch.convert.quantize", "eco_tpu_torch.spec.graph",
         "eco_tpu_torch.spec.prototxt", "eco_tpu_torch.models.zoo",
@@ -38,7 +38,10 @@ assert {"eco_tpu_torch.ops.quant", "eco_tpu_torch.ops.qconv",
         "eco_tpu_torch.parallel.mesh", "eco_tpu_torch.parallel.shard",
         "eco_tpu_torch.parallel.tp", "eco_tpu_torch.parallel.pp",
         "eco_tpu_torch.parallel.multiprocess", "eco_tpu_torch.convert.export",
-        "eco_tpu_torch.utils.logging", "eco_tpu_torch.ops.collectives"} <= set(names), names
+        "eco_tpu_torch.utils.logging", "eco_tpu_torch.ops.collectives",
+        "eco_tpu_torch.examples.quantized_serving", "eco_tpu_torch.examples.serve_streams",
+        "eco_tpu_torch.examples.aot_artifact", "eco_tpu_torch.examples.train_synthetic",
+        "eco_tpu_torch.tools.int8_probe"} <= set(names), names
 """
 
 _IMPORT_CHIP_SMOKE = """
