@@ -1,0 +1,8 @@
+"""ECO-Full, Kinetics-400 (``models_ECO_Full/kinetics/ECO_Full.prototxt``)."""
+
+from portbench.reference import eco
+
+
+def net(cfg: dict) -> list:
+    return eco.layers("full", cfg["num_classes"], cfg["fc_name"], cfg["dropout_ratio"],
+                      cfg["num_segments"])
