@@ -240,6 +240,7 @@ from eco_tpu_torch.spec.prototxt import graph_from_prototxt
 from eco_tpu_torch.tools import cli, int8_probe, memreport
 from eco_tpu_torch.train import SolverConfig, Trainer, init_train_state, make_train_step
 from eco_tpu_torch.utils.shapes import normalize_spatial_param
+from eco_tpu_torch.utils.tracing import COUNTS
 
 SEED = 0
 BATCH, SEGMENTS, HEIGHT, WIDTH, CROP = 8, 16, 256, 340, 224
@@ -742,16 +743,14 @@ def _pallas_pool(on: bool):
 
 
 def _reset_counts():
-    preprocess.crop_normalize_launches = 0
-    poolfuse.fused_maxpool_launches = 0
-    qconv.qconv_launches = 0
+    for k in ("k1.launches", "k2.launches", "k3.launches"):
+        COUNTS[k] = 0
 
 
 def _counts():
     """K1's, K2's and K3's launches since ``_reset_counts``."""
     torch.cuda.synchronize()
-    return (preprocess.crop_normalize_launches, poolfuse.fused_maxpool_launches,
-            qconv.qconv_launches)
+    return COUNTS["k1.launches"], COUNTS["k2.launches"], COUNTS["k3.launches"]
 
 
 def check_pool_kernel(dev) -> dict:

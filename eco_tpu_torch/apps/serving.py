@@ -6,6 +6,10 @@ inference-optimized or int8-quantized ``Program``; ``RawPreprocessProgram``
 puts the same kernel in front of any ``Program``, so a train step or a test
 pass consumes uint8 batches.  The host ships uint8, a quarter of the bytes
 of f32 clips, and does no per-frame math.
+
+Spans and counters (``utils/tracing.py``): an ``UInt8Server`` call is an
+``eco.serve`` span, the frames' copy in it an ``eco.serve.h2d`` span; it
+counts ``serve.requests`` and ``serve.videos``.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from eco_tpu_torch.convert.quantize import int8_input_rewrite
 from eco_tpu_torch.ops.preprocess import preprocess_on_device
 from eco_tpu_torch.ops.resize import preprocess_resize_on_device
 from eco_tpu_torch.runtime.executor import Program
+from eco_tpu_torch.utils.tracing import COUNTS, span
 
 
 class UInt8Server:
@@ -65,7 +70,8 @@ class UInt8Server:
         host memory without a blocking copy), then the kernel.  Default
         offsets are the center crop, made on the host: with host offsets the
         kernel's wrapper needs one small copy and no stream sync."""
-        frames_u8 = torch.as_tensor(frames_u8).to(self.program.device, non_blocking=True)
+        with span("eco.serve.h2d"):
+            frames_u8 = torch.as_tensor(frames_u8).to(self.program.device, non_blocking=True)
         n, s, h, w, _ = frames_u8.shape
         if h_off is None:
             h_off = [(h - self.crop) // 2] * n
@@ -78,9 +84,12 @@ class UInt8Server:
             act_scale=self.in_scale)
 
     def __call__(self, frames_u8, *, h_off=None, w_off=None, mirror=None):
-        clips = self.clips(frames_u8, h_off=h_off, w_off=w_off, mirror=mirror)
-        outs, _ = self.program.apply(
-            self.params, self.state, {"data": clips}, capture=[self.output])
+        COUNTS["serve.requests"] += 1
+        COUNTS["serve.videos"] += len(frames_u8)
+        with span("eco.serve"):
+            clips = self.clips(frames_u8, h_off=h_off, w_off=w_off, mirror=mirror)
+            outs, _ = self.program.apply(
+                self.params, self.state, {"data": clips}, capture=[self.output])
         return outs[self.output]
 
 

@@ -46,8 +46,8 @@ import torch
 from eco_tpu_torch.convert import export_serving, optimize_for_inference, save_serving_artifact
 from eco_tpu_torch.examples.quantized_serving import logits_blob
 from eco_tpu_torch.models import get_model
-from eco_tpu_torch.ops import preprocess, qconv
 from eco_tpu_torch.runtime import Program
+from eco_tpu_torch.utils.tracing import COUNTS
 
 # the reference's bound on the destination's probabilities (aot_artifact.py)
 MAX_PROB_DIFF = 1e-2
@@ -143,7 +143,7 @@ def main(argv=None) -> dict:
                                                        {"data": graph.inputs["data"]})
     graph, params, state = optimize_for_inference(graph, params, state)
     prog = Program(graph, compute_dtype=torch.bfloat16, device=device)
-    k1_0, k3_0 = preprocess.crop_normalize_launches, qconv.qconv_launches
+    k1_0, k3_0 = COUNTS["k1.launches"], COUNTS["k3.launches"]
     with tempfile.TemporaryDirectory(prefix="eco_aot_") as tmp:
         result = export_and_check(prog, params, state, data, device=device,
                                   dynamic_batch=args.dynamic_batch, workdir=tmp)
@@ -153,8 +153,8 @@ def main(argv=None) -> dict:
           f"logits artifact max |diff| {result['logits_max_abs_diff']:.3g}")
     for b, shape in result["dynamic_shapes"].items():
         print(f"dynamic batch b={b}: out shape {tuple(shape)}")
-    result["k1_launches"] = preprocess.crop_normalize_launches - k1_0
-    result["k3_launches"] = qconv.qconv_launches - k3_0
+    result["k1_launches"] = COUNTS["k1.launches"] - k1_0
+    result["k3_launches"] = COUNTS["k3.launches"] - k3_0
     result["device"] = (torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu")
     print(json.dumps(result))
     return result

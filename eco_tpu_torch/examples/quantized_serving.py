@@ -29,9 +29,9 @@ import torch
 
 from eco_tpu_torch.convert import quantize_for_serving
 from eco_tpu_torch.models import get_model
-from eco_tpu_torch.ops import preprocess, qconv
 from eco_tpu_torch.runtime import Program
 from eco_tpu_torch.runtime.profiler import _Clock
+from eco_tpu_torch.utils.tracing import COUNTS
 
 
 def logits_blob(graph) -> str:
@@ -94,7 +94,7 @@ def main(argv=None) -> dict:
 
     prog, params, state, data = build(args.segments, args.batch, args.crop, device)
 
-    k1_0, k3_0 = preprocess.crop_normalize_launches, qconv.qconv_launches
+    k1_0, k3_0 = COUNTS["k1.launches"], COUNTS["k3.launches"]
     t0 = time.perf_counter()
     result, (qprog, qp, qs, _) = quantize_and_compare(prog, params, state, data)
     result["quantize_and_compare_s"] = time.perf_counter() - t0
@@ -115,8 +115,8 @@ def main(argv=None) -> dict:
         print(f"{name}: {args.batch / ms * 1e3:8.1f} videos/s  ({ms:.2f} ms)")
     # one int8 forward in the comparison, one warm-up and ``iters`` timed
     result["int8_forwards"] = 2 + args.iters
-    result["k1_launches"] = preprocess.crop_normalize_launches - k1_0
-    result["k3_launches"] = qconv.qconv_launches - k3_0
+    result["k1_launches"] = COUNTS["k1.launches"] - k1_0
+    result["k3_launches"] = COUNTS["k3.launches"] - k3_0
     result["device"] = (torch.cuda.get_device_name(device) if device.type == "cuda"
                         else "cpu")
     print(json.dumps(result))

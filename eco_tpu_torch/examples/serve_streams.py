@@ -31,8 +31,8 @@ import torch
 from eco_tpu_torch.apps.online import MultiStreamRecognizer
 from eco_tpu_torch.convert import optimize_for_inference
 from eco_tpu_torch.models import get_model
-from eco_tpu_torch.ops import preprocess, qconv
 from eco_tpu_torch.runtime import Program
+from eco_tpu_torch.utils.tracing import COUNTS
 
 
 def inference_program(graph, params, state, device, compute_dtype=torch.bfloat16):
@@ -88,7 +88,7 @@ def main(argv=None) -> dict:
                                                        {"data": graph.inputs["data"]})
     prog, params, state = inference_program(graph, params, state, device)
 
-    k1_0, k3_0 = preprocess.crop_normalize_launches, qconv.qconv_launches
+    k1_0, k3_0 = COUNTS["k1.launches"], COUNTS["k3.launches"]
     res, dt = run_streams(prog, params, state, cameras(args.streams), segments=args.segments,
                           ticks=args.ticks, workers=args.workers, crop=args.crop)
     for i, (label, smoothed) in enumerate(res[:4]):
@@ -101,8 +101,8 @@ def main(argv=None) -> dict:
         "num_classes": len(res[0][1]),
         "windows_per_s": args.streams / dt,
         "tick_s": dt,
-        "k1_launches": preprocess.crop_normalize_launches - k1_0,
-        "k3_launches": qconv.qconv_launches - k3_0,
+        "k1_launches": COUNTS["k1.launches"] - k1_0,
+        "k3_launches": COUNTS["k3.launches"] - k3_0,
         "device": (torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"),
     }
     print(json.dumps(result))

@@ -31,9 +31,9 @@ import torch
 
 from eco_tpu_torch.data import TransformConfig, VideoDataConfig, VideoPipeline
 from eco_tpu_torch.models import build_eco_lite
-from eco_tpu_torch.ops import preprocess, qconv
 from eco_tpu_torch.runtime import Program
 from eco_tpu_torch.train import SolverConfig, Trainer
+from eco_tpu_torch.utils.tracing import COUNTS
 
 
 def make_dataset(root, num_videos=12, frames=24, classes=3):
@@ -97,7 +97,7 @@ def main(argv=None) -> dict:
         graph = build_graph(args.segments, args.batch, args.crop)
         trainer = Trainer(Program(graph, train=True, device=device), solver_config(args.iters),
                           test_program=Program(graph, train=False, device=device))
-        k1_0, k3_0 = preprocess.crop_normalize_launches, qconv.qconv_launches
+        k1_0, k3_0 = COUNTS["k1.launches"], COUNTS["k3.launches"]
         pipe = Pipeline(cfg, train=True, seed=0)
         try:
             def batches():
@@ -126,8 +126,8 @@ def main(argv=None) -> dict:
         "metrics": metrics,
         "train_s": train_s,
         "videos_per_s": args.iters * args.batch / train_s,
-        "k1_launches": preprocess.crop_normalize_launches - k1_0,
-        "k3_launches": qconv.qconv_launches - k3_0,
+        "k1_launches": COUNTS["k1.launches"] - k1_0,
+        "k3_launches": COUNTS["k3.launches"] - k3_0,
         "device": (torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"),
     }
     print(json.dumps(result))

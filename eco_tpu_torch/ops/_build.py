@@ -5,6 +5,9 @@
 source and the flags, so an edited source is rebuilt and an unchanged one is
 loaded as it is.  The library has a plain C interface and is loaded with
 ``ctypes``; nothing includes PyTorch's headers, so a build takes seconds.
+It links the CUDA runtime as a shared library, the one PyTorch has loaded:
+``torch.profiler`` sees a launch only through that, and then links the
+kernel to the host range that launched it.
 
 There is no fallback: a missing ``nvcc`` or a failed compile raises.
 """
@@ -24,7 +27,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-cudart", "shared",
 )
 
 

@@ -15,6 +15,10 @@ weight ``(C_in, C_out/groups, *k)``, which is Caffe's deconv blob as it is
 Dtype policy, as in the reference: the weight is cast to ``x.dtype``, the
 convolution output is rounded to ``x.dtype``, and the bias is added in that
 type.
+
+Spans (``utils/tracing.py``): ``eco.cast`` around the weight's cast,
+``eco.layout`` around the output's move back to channels-last, ``eco.bias``
+around the bias's cast and add.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from eco_tpu_torch.utils.shapes import normalize_spatial_param
+from eco_tpu_torch.utils.tracing import span
 
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 _DECONV = {1: F.conv_transpose1d, 2: F.conv_transpose2d, 3: F.conv_transpose3d}
@@ -46,13 +51,17 @@ def conv_nd(
     pad = normalize_spatial_param(pad, num_spatial, default=0)
     dilation = normalize_spatial_param(dilation, num_spatial, default=1)
     op = (_DECONV if transposed else _CONV)[num_spatial]
+    with span("eco.cast"):
+        w = w.to(x.dtype)
     y = op(
-        x.movedim(-1, 1), w.to(x.dtype), None,
+        x.movedim(-1, 1), w, None,
         stride=stride, padding=pad, dilation=dilation, groups=groups,
     )
-    y = y.movedim(1, -1).contiguous()
+    with span("eco.layout"):
+        y = y.movedim(1, -1).contiguous()
     if b is not None:
-        y = y + b.to(y.dtype)
+        with span("eco.bias"):
+            y = y + b.to(y.dtype)
     return y
 
 

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from eco_tpu_torch.utils.shapes import normalize_spatial_param
+from eco_tpu_torch.utils.tracing import span
 
 
 def fold_segments(x: torch.Tensor) -> torch.Tensor:
@@ -42,10 +43,12 @@ def to_logical(x: torch.Tensor) -> torch.Tensor:
 
 
 def to_physical(x: torch.Tensor) -> torch.Tensor:
-    """Caffe NCHW-style logical -> contiguous channels-last physical (ndim >= 3)."""
+    """Caffe NCHW-style logical -> contiguous channels-last physical (ndim >= 3),
+    in an ``eco.layout`` span."""
     if x.ndim < 3:
         return x
-    return x.movedim(1, -1).contiguous()
+    with span("eco.layout"):
+        return x.movedim(1, -1).contiguous()
 
 
 def extract_windows(x: torch.Tensor, kernel, stride, outs, dilation=None) -> torch.Tensor:

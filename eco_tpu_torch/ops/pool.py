@@ -18,6 +18,9 @@ not used, because it agrees with Caffe only on some shapes.
   count in the denominator as in pooling_layer.cpp.  The grid is made once
   per geometry and device and kept there: a copy from host memory at every
   call would wait for the stream.
+
+Spans (``utils/tracing.py``): ``eco.pad`` around every spatial padding,
+``eco.layout`` around the max pool's move back to channels-last.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from eco_tpu_torch.utils.shapes import (
 )
 from eco_tpu_torch.ops import poolfuse
 from eco_tpu_torch.ops.layout import extract_windows
+from eco_tpu_torch.utils.tracing import span
 
 _MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
 
@@ -46,7 +50,8 @@ def _pad_spatial(x, pad_cfg, value):
     flat = [0, 0]  # channels (last axis) first: F.pad lists axes from the end
     for lo, hi in reversed(pad_cfg):
         flat += [lo, hi]
-    return F.pad(x, flat, value=value)
+    with span("eco.pad"):
+        return F.pad(x, flat, value=value)
 
 
 def _windows(x, kernel, stride):
@@ -104,7 +109,8 @@ def pool_nd(
         if x.dtype.is_floating_point:
             xp = _pad_spatial(x, pad_cfg, float("-inf"))
             y = _MAX_POOL[num_spatial](xp.movedim(-1, 1), kernel, stride)
-            return y.movedim(1, -1).contiguous()
+            with span("eco.layout"):
+                return y.movedim(1, -1).contiguous()
         xp = _pad_spatial(x, pad_cfg, torch.iinfo(x.dtype).min)
         return _windows(xp, kernel, stride).amax(dim=window_dims)
     if mode in ("ave", "avg", "mean"):

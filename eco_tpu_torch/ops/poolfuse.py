@@ -10,7 +10,7 @@ on the TPU; otherwise the pool stays on ATen.
   hand-written kernel ``csrc/poolfuse.cu`` (built with ``nvcc`` at first
   use) or the call raises; a CPU tensor goes to the plain version.
 - ``fused_maxpool_3x3s2_reference`` is that plain PyTorch version.
-- ``fused_maxpool_launches`` counts kernel launches.
+- ``COUNTS["k2.launches"]`` (``utils/tracing.py``) counts kernel launches.
 
 The kernel has no backward, because the reference's has none (``jax.grad``
 through the Pallas call fails): asking for a gradient through it raises.
@@ -25,8 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from eco_tpu_torch.ops import _build
-
-fused_maxpool_launches = 0
+from eco_tpu_torch.utils.tracing import COUNTS
 
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # the clipped last window's fill when no ReLU makes 0 the identity
@@ -96,7 +95,6 @@ def fused_maxpool_3x3s2_reference(y, scale=None, shift=None, *, affine: bool = F
 
 
 def _fused_maxpool_cuda(y, scale, shift, *, affine: bool, relu: bool):
-    global fused_maxpool_launches
     if y.dtype not in _DTYPE:
         raise ValueError(f"no fused_maxpool_3x3s2 kernel for {y.dtype}")
     if not y.is_contiguous():
@@ -119,7 +117,7 @@ def _fused_maxpool_cuda(y, scale, shift, *, affine: bool, relu: bool):
     )
     if err != 0:
         raise RuntimeError(f"fused_maxpool_3x3s2 kernel launch failed: CUDA error {err}")
-    fused_maxpool_launches += 1
+    COUNTS["k2.launches"] += 1
     return out
 
 

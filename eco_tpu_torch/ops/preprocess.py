@@ -8,7 +8,8 @@ one pass on the device produces model-ready clips ``(N, S, crop, crop, 3)``.
   to the hand-written kernel ``csrc/preprocess.cu`` (built with ``nvcc`` at
   first use) or the call raises; a CPU tensor goes to the plain version.
 - ``crop_normalize_reference`` is that plain PyTorch version.
-- ``crop_normalize_launches`` counts kernel launches.
+- ``COUNTS["k1.launches"]`` (``utils/tracing.py``) counts kernel launches;
+  an ``eco.k1`` span covers ``preprocess_on_device``.
 - ``_pack_aug`` hands the kernel the per-video offsets and mirror flags in
   one small tensor with no stream sync, from the host or from the card.
 
@@ -25,8 +26,7 @@ import numpy as np
 import torch
 
 from eco_tpu_torch.ops import _build
-
-crop_normalize_launches = 0
+from eco_tpu_torch.utils.tracing import COUNTS, span
 
 _OUT_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -110,7 +110,6 @@ def _pack_aug(h_off, w_off, mirror, n: int, device) -> torch.Tensor:
 
 def _crop_normalize_cuda(frames_u8, h_off, w_off, mirror, *, crop: int,
                          mean, out_dtype, act_scale: float | None):
-    global crop_normalize_launches
     if frames_u8.dtype != torch.uint8 or frames_u8.ndim != 5 or frames_u8.shape[-1] != 3:
         raise ValueError(
             f"frames must be uint8 (N, S, H, W, 3), got {frames_u8.dtype} "
@@ -135,7 +134,7 @@ def _crop_normalize_cuda(frames_u8, h_off, w_off, mirror, *, crop: int,
     )
     if err != 0:
         raise RuntimeError(f"crop_normalize kernel launch failed: CUDA error {err}")
-    crop_normalize_launches += 1
+    COUNTS["k1.launches"] += 1
     return out
 
 
@@ -150,8 +149,9 @@ def preprocess_on_device(frames_u8, h_off, w_off, mirror, *, crop: int = 224,
     if act_scale is not None:
         out_dtype = torch.int8
     kw = dict(crop=crop, mean=mean, out_dtype=out_dtype, act_scale=act_scale)
-    if frames_u8.device.type == "cuda":
-        return _crop_normalize_cuda(frames_u8, h_off, w_off, mirror, **kw)
-    if frames_u8.device.type == "cpu":
-        return crop_normalize_reference(frames_u8, h_off, w_off, mirror, **kw)
+    with span("eco.k1"):
+        if frames_u8.device.type == "cuda":
+            return _crop_normalize_cuda(frames_u8, h_off, w_off, mirror, **kw)
+        if frames_u8.device.type == "cpu":
+            return crop_normalize_reference(frames_u8, h_off, w_off, mirror, **kw)
     raise ValueError(f"no crop_normalize for device {frames_u8.device}")

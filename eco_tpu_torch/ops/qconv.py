@@ -16,8 +16,8 @@ PyTorch has no int8 convolution on CUDA, so the port writes it by hand.
   they are made; on the card ``qconv_nd`` refuses weights in any other.
 - ``plan`` picks the kernel's load mode, tile width, K chunk and K split for
   a geometry (the kernel checks what it is handed); the CPU tests reach it.
-- ``qconv_launches`` counts kernel launches (one a call; a split-K call's
-  second, summing pass is part of it).
+- ``COUNTS["k3.launches"]`` (``utils/tracing.py``) counts kernel launches
+  (one a call; a split-K call's second, summing pass is part of it).
 
 The epilogue, as the reference's: ``y = f32(acc) * scale_vec[c] (+ b[c])``;
 then either ``y`` cast to ``out_dtype`` (f32 or bf16), or, with
@@ -37,8 +37,7 @@ import torch.nn.functional as F
 
 from eco_tpu_torch.utils.shapes import normalize_spatial_param
 from eco_tpu_torch.ops import _build
-
-qconv_launches = 0
+from eco_tpu_torch.utils.tracing import COUNTS
 
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 _OUT_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -222,7 +221,6 @@ def plan_for(x_q, w_q, *, stride=1, pad=0, dilation=1, groups: int = 1) -> Plan:
 
 def _qconv_cuda(x_q, w_q, scale_vec, b, *, stride, pad, dilation, groups,
                 out_scale, out_dtype):
-    global qconv_launches
     nsp, stride, pad, dilation = _geometry(x_q.ndim, stride, pad, dilation)
     if not x_q.is_contiguous():
         raise ValueError("qconv_nd takes a contiguous channels-last input")
@@ -272,7 +270,7 @@ def _qconv_cuda(x_q, w_q, scale_vec, b, *, stride, pad, dilation, groups,
     )
     if err != 0:
         raise RuntimeError(f"qconv kernel launch failed: CUDA error {err}")
-    qconv_launches += 1
+    COUNTS["k3.launches"] += 1
     return out
 
 

@@ -44,6 +44,7 @@ from eco_tpu_torch.ops import collectives
 from eco_tpu_torch.ops.qconv import kernel_layout
 from eco_tpu_torch.runtime import memory
 from eco_tpu_torch.runtime.init import fill
+from eco_tpu_torch.utils.tracing import span
 
 # Layer types whose tops are host-provided (the data boundary).
 DATA_LAYER_TYPES = {
@@ -1139,55 +1140,59 @@ class Program(nn.Module):
         recomputes what the policy does not keep).  ``dist`` runs it as one
         rank of a mesh (``eco_tpu_torch.parallel``): SyncBN, the Gather and
         Scatter layers' collectives, and tensor or segment sharding.
+        The call is an ``eco.apply`` span, each layer in it an
+        ``eco.layer.<type>`` span (``utils/tracing.py``).
         """
-        seed = None
-        if generator is not None:
-            seed = int(torch.randint(0, 2**62, (1,), generator=generator,
-                                     device=generator.device).item())
+        with span("eco.apply"):
+            seed = None
+            if generator is not None:
+                seed = int(torch.randint(0, 2**62, (1,), generator=generator,
+                                         device=generator.device).item())
+                if dist is not None:
+                    seed ^= dist.seed_offset
+            ctx = Context(train=self.train, seed=seed, compute_dtype=self.compute_dtype,
+                          device=self.device,
+                          bn_axis_name=None if dist is None else dist.bn_axis_name,
+                          data_group=None if dist is None else dist.data_group)
+            blobs: dict[str, torch.Tensor] = {}
             if dist is not None:
-                seed ^= dist.seed_offset
-        ctx = Context(train=self.train, seed=seed, compute_dtype=self.compute_dtype,
-                      device=self.device,
-                      bn_axis_name=None if dist is None else dist.bn_axis_name,
-                      data_group=None if dist is None else dist.data_group)
-        blobs: dict[str, torch.Tensor] = {}
-        if dist is not None:
-            dist.start(inputs)
-        for k, v in inputs.items():
-            v = torch.as_tensor(v).to(self.device, non_blocking=True)
-            declared = self.graph.inputs.get(k)
-            if declared is not None and dist is not None:
-                declared = dist.input_shape(k, declared)
-            if declared is not None and tuple(v.shape[1:]) != tuple(declared[1:]):
-                # batch (axis 0) is free; a wrong segment count would otherwise
-                # be silently reinterpreted by the segment reshapes
-                raise ValueError(
-                    f"input {k!r}: shape {tuple(v.shape)} does not match declared "
-                    f"{declared} (non-batch dims must agree)"
-                )
-            blobs[k] = self.cast_input(v)
-        wanted = list(self.output_names) + [
-            c for c in (capture or ()) if c not in self.output_names
-        ]
-        shared: dict[str, torch.Tensor] = {}  # shared name -> the owner's tensor
+                dist.start(inputs)
+            for k, v in inputs.items():
+                v = torch.as_tensor(v).to(self.device, non_blocking=True)
+                declared = self.graph.inputs.get(k)
+                if declared is not None and dist is not None:
+                    declared = dist.input_shape(k, declared)
+                if declared is not None and tuple(v.shape[1:]) != tuple(declared[1:]):
+                    # batch (axis 0) is free; a wrong segment count would otherwise
+                    # be silently reinterpreted by the segment reshapes
+                    raise ValueError(
+                        f"input {k!r}: shape {tuple(v.shape)} does not match declared "
+                        f"{declared} (non-batch dims must agree)"
+                    )
+                blobs[k] = self.cast_input(v)
+            wanted = list(self.output_names) + [
+                c for c in (capture or ()) if c not in self.output_names
+            ]
+            shared: dict[str, torch.Tensor] = {}  # shared name -> the owner's tensor
 
-        def run(steps, blobs, first=True):
-            # a recompute (first=False) writes its BN statistics elsewhere
-            c = ctx if first else dataclasses.replace(ctx, new_state={})
-            for layer, impl in steps:
-                ins = [blobs[b] for b in layer.bottoms]
-                lp = self._layer_params(layer, impl, params, ins, shared)
-                st = state.get(layer.name, {})
-                outs = (impl.apply(layer, lp, st, ins, c) if dist is None
-                        else dist.run_layer(layer, impl, lp, st, ins, c))
-                blobs.update(zip(layer.tops, outs))
+            def run(steps, blobs, first=True):
+                # a recompute (first=False) writes its BN statistics elsewhere
+                c = ctx if first else dataclasses.replace(ctx, new_state={})
+                for layer, impl in steps:
+                    with span("eco.layer." + layer.type.lower()):
+                        ins = [blobs[b] for b in layer.bottoms]
+                        lp = self._layer_params(layer, impl, params, ins, shared)
+                        st = state.get(layer.name, {})
+                        outs = (impl.apply(layer, lp, st, ins, c) if dist is None
+                                else dist.run_layer(layer, impl, lp, st, ins, c))
+                    blobs.update(zip(layer.tops, outs))
 
-        steps = list(zip(self.exec_layers, self._impls))
-        if remat is None:
-            run(steps, blobs)
-        else:
-            memory.run_with_remat(steps, blobs, wanted, remat, run)
-        return {k: blobs[k] for k in wanted}, {**state, **ctx.new_state}
+            steps = list(zip(self.exec_layers, self._impls))
+            if remat is None:
+                run(steps, blobs)
+            else:
+                memory.run_with_remat(steps, blobs, wanted, remat, run)
+            return {k: blobs[k] for k in wanted}, {**state, **ctx.new_state}
 
     def _layer_params(self, layer, impl, params, ins, shared):
         """The layer's params, with each shared one it does not own aliased

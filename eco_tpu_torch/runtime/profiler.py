@@ -16,13 +16,18 @@ Twin of ``eco_tpu/runtime/profiler.py``:
   net.cpp:708-783).
 - :func:`memory_analysis`: the peak of ``torch.cuda.max_memory_allocated``
   around one call.
-- :func:`trace`: ``torch.profiler`` around a block, a Chrome trace written
-  to a directory.
+- :func:`trace`: ``torch.profiler`` around a block, a Chrome trace and the
+  table of :func:`span_table` written to a directory.
+- :func:`span_table`: the program's ``eco.*`` spans (``utils/tracing.py``)
+  in a profile: host time, the device time and launches each span caused,
+  and the device's idle time by the span the host was in.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import json
 import os
 import time
 from typing import Mapping
@@ -247,10 +252,92 @@ def memory_analysis(fn, *args, device=None, **kwargs) -> dict:
             "output_size_in_bytes": after - before, "peak_bytes": peak}
 
 
+def _innermost_span(e):
+    while e is not None and not e.name.startswith("eco."):
+        e = e.cpu_parent
+    return e
+
+
+def span_table(events) -> dict:
+    """The ``eco.*`` spans of a profile's events (``prof.events()``; times in
+    microseconds), in milliseconds.
+
+    ``spans`` maps each span name to its ``calls``, ``host_ms`` (summed
+    durations on the host), ``device_ms`` and ``launches`` (the kernels,
+    copies and fills launched inside it, by the profiler's link of each
+    device op to the host op that launched it) and ``self_device_ms`` and
+    ``self_launches`` (those with no inner span between).  ``idle_ms`` maps
+    the innermost span the host was in at the middle of each gap in the
+    device's activity to the gaps' summed length, ``caller`` where it was
+    in none; the gaps are those of ``[first event, last event]`` outside the
+    union of the device's ops.  ``busy_ms`` is that union, ``window_ms`` that
+    interval.  Spans are taken to nest, as those of one thread do.
+    """
+    cuda = torch.autograd.DeviceType.CUDA
+    table = collections.defaultdict(lambda: dict.fromkeys(
+        ("calls", "host_ms", "device_ms", "launches", "self_device_ms", "self_launches"), 0))
+    spans, device, host = [], [], []
+    for e in events:
+        if e.device_type == cuda:
+            # the profiler also draws a caller's record_function ranges on
+            # the device's timeline; they are no work
+            if not e.is_user_annotation:
+                device.append((e.time_range.start, e.time_range.end))
+            continue
+        host.append((e.time_range.start, e.time_range.end))
+        if e.name.startswith("eco."):
+            spans.append((e.time_range.start, e.time_range.end, e.name))
+            row = table[e.name]
+            row["calls"] += 1
+            row["host_ms"] += (e.time_range.end - e.time_range.start) * 1e-3
+        kernels = [k.duration for k in e.kernels]
+        owner = _innermost_span(e) if kernels else None
+        if owner is None:
+            continue
+        ms = sum(kernels) * 1e-3
+        table[owner.name]["self_device_ms"] += ms
+        table[owner.name]["self_launches"] += len(kernels)
+        while owner is not None:
+            table[owner.name]["device_ms"] += ms
+            table[owner.name]["launches"] += len(kernels)
+            owner = _innermost_span(owner.cpu_parent)
+    out = {"spans": {k: dict(v) for k, v in table.items()}, "idle_ms": {},
+           "busy_ms": 0.0, "window_ms": 0.0}
+    if not device:
+        return out
+    busy = []
+    for s, e in sorted(device):
+        if busy and s <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], e)
+        else:
+            busy.append([s, e])
+    t_first = min([s for s, _ in host] + [busy[0][0]])
+    t_last = max([e for _, e in host] + [busy[-1][1]])
+    idle, stack, i = collections.defaultdict(float), [], 0
+    spans.sort()
+    edges = [t_first] + [x for se in busy for x in se] + [t_last]
+    for a, b in zip(edges[0::2], edges[1::2]):
+        if b <= a:
+            continue
+        t = (a + b) / 2
+        while i < len(spans) and spans[i][0] <= t:
+            while stack and stack[-1][1] < spans[i][0]:
+                stack.pop()
+            stack.append(spans[i])
+            i += 1
+        while stack and stack[-1][1] < t:
+            stack.pop()
+        idle[stack[-1][2] if stack else "caller"] += (b - a) * 1e-3
+    out.update(idle_ms=dict(idle), busy_ms=sum(e - s for s, e in busy) * 1e-3,
+               window_ms=(t_last - t_first) * 1e-3)
+    return out
+
+
 @contextlib.contextmanager
 def trace(logdir: str):
     """``torch.profiler`` over the block (CPU and CUDA activity); the Chrome
-    trace goes to ``logdir/trace.json``."""
+    trace goes to ``logdir/trace.json``, the block's :func:`span_table` to
+    ``logdir/spans.json``."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -258,3 +345,5 @@ def trace(logdir: str):
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+    with open(os.path.join(logdir, "spans.json"), "w") as f:
+        json.dump(span_table(prof.events()), f, indent=1)

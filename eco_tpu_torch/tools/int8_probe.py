@@ -41,6 +41,7 @@ import torch.nn.functional as F
 
 from eco_tpu_torch.ops import preprocess, qconv
 from eco_tpu_torch.runtime.profiler import _Clock
+from eco_tpu_torch.utils.tracing import COUNTS
 
 BF16_PEAK = 989e12
 INT8_PEAK = 1979e12
@@ -135,7 +136,7 @@ def conv_ratio(n: int = 1536, hw: int = 28, c: int = 96, device="cuda") -> dict:
     ones = torch.ones(c, dtype=torch.float32, device=device)
     ops = 2 * n * hw * hw * 9 * c * c
     tb = _timed_chain(xb, wb, bf16_conv_step, K=8)
-    k3_0 = qconv.qconv_launches
+    k3_0 = COUNTS["k3.launches"]
     ti = _timed_chain(xi, wi, lambda a, w: int8_conv_step(a, w, ones), K=8)
     return {
         "conv_bf16_ms": tb, "conv_bf16_tops": ops / tb / 1e9,
@@ -143,7 +144,7 @@ def conv_ratio(n: int = 1536, hw: int = 28, c: int = 96, device="cuda") -> dict:
         "conv_int8_ms": ti, "conv_int8_tops": ops / ti / 1e9,
         "conv_int8_peak_share": ops / ti * 1e3 / INT8_PEAK,
         "int8_conv_ratio": tb / ti,
-        "conv_k3_launches": qconv.qconv_launches - k3_0,
+        "conv_k3_launches": COUNTS["k3.launches"] - k3_0,
     }
 
 
@@ -196,11 +197,11 @@ def serving_ratio(batch: int = 96, device="cuda", *, segments: int = 16, crop: i
             with torch.no_grad():
                 return server(request)
 
-        k1_0, k3_0 = preprocess.crop_normalize_launches, qconv.qconv_launches
+        k1_0, k3_0 = COUNTS["k1.launches"], COUNTS["k3.launches"]
         ms = _Clock(device, iters, warmup=1)(serve)
         out[name] = {"ms": ms, "videos_per_sec": batch / ms * 1e3,
-                     "k1": preprocess.crop_normalize_launches - k1_0,
-                     "k3": qconv.qconv_launches - k3_0}
+                     "k1": COUNTS["k1.launches"] - k1_0,
+                     "k3": COUNTS["k3.launches"] - k3_0}
     return {
         "eco_lite_bf16_videos_per_sec": out["bf16"]["videos_per_sec"],
         "eco_lite_bf16_ms": out["bf16"]["ms"],

@@ -1,0 +1,40 @@
+"""Spans and counters at the program's layer boundaries.
+
+- :func:`span` marks a stretch of host work as a ``torch.profiler`` range
+  named ``eco.*``.  Spans record exactly when a profiler runs (any
+  ``torch.profiler.profile``, or ``runtime/profiler.py:trace``), so they
+  land on the profiler's one timeline, beside the device's kernels and
+  copies, which the profiler links to the span that launched them.  With no
+  profiler running, and while ``torch.export`` or ``torch.compile`` traces,
+  a span is one shared no-op context: no profiler op enters an artifact.
+  A span is the profiler's C++ range (``_RecordFunctionFast``), not
+  ``torch.profiler.record_function``: under a running profiler that costs
+  ~2 us a span where ``record_function`` costs ~17 us, which a request of
+  several hundred spans would add to the host's enqueue.
+- ``COUNTS`` counts work where it happens, whether a profiler runs or not:
+  ``serve.requests`` and ``serve.videos`` (``UInt8Server`` calls and the
+  videos they scored), ``k1.launches``, ``k2.launches`` and ``k3.launches``
+  (launches of the hand-written kernels of ``ops/preprocess.py``,
+  ``ops/poolfuse.py`` and ``ops/qconv.py``).  Take a difference around the
+  stretch of interest.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+
+import torch
+from torch._C._profiler import _RecordFunctionFast
+
+COUNTS: collections.Counter = collections.Counter()
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A profiler range ``name`` while a profiler runs, else a shared no-op
+    context."""
+    if torch.compiler.is_compiling() or not torch.autograd._profiler_enabled():
+        return _OFF
+    return _RecordFunctionFast(name)

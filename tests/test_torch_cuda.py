@@ -23,6 +23,7 @@ from eco_tpu_torch.ops.pool import pool_nd
 from eco_tpu_torch.ops.resize import preprocess_resize_on_device
 from eco_tpu_torch.runtime import Program, profiler
 from eco_tpu_torch.train import SolverConfig, init_train_state, make_train_step
+from eco_tpu_torch.utils.tracing import COUNTS
 
 pytestmark = pytest.mark.cuda
 
@@ -62,10 +63,10 @@ def _batch(dev, n, s, h, w, crop, seed=0):
 def test_kernel_equals_plain_version(cuda, dtype, act_scale):
     args = _batch(cuda, 8, 16, 256, 340, 224)
     kw = dict(crop=224, mean=MEAN, out_dtype=dtype, act_scale=act_scale)
-    before = preprocess.crop_normalize_launches
+    before = COUNTS["k1.launches"]
     got = preprocess.preprocess_on_device(*args, **kw)
     torch.cuda.synchronize()
-    assert preprocess.crop_normalize_launches == before + 1
+    assert COUNTS["k1.launches"] == before + 1
     assert torch.equal(got, preprocess.crop_normalize_reference(*args, **kw))
 
 
@@ -94,10 +95,10 @@ def test_kernel_equals_plain_version_over_a_grid(cuda, crop, dtype, act_scale, m
     h_off[-1], w_off[-1] = h - crop, w - crop
     flags = torch.full((n,), mirror == "on", device=cuda)
     kw = dict(crop=crop, mean=MEAN, out_dtype=dtype, act_scale=act_scale)
-    before = preprocess.crop_normalize_launches
+    before = COUNTS["k1.launches"]
     got = preprocess.preprocess_on_device(frames, h_off, w_off, flags, **kw)
     torch.cuda.synchronize()
-    assert preprocess.crop_normalize_launches == before + 1
+    assert COUNTS["k1.launches"] == before + 1
     assert torch.equal(got, preprocess.crop_normalize_reference(frames, h_off, w_off, flags, **kw))
 
 
@@ -109,10 +110,10 @@ def test_kernel_at_crop_227_equals_plain_version(cuda, dtype, act_scale):
     is 681 values, a multiple of no 16-byte unit."""
     args = _batch(cuda, 32, 1, 256, 256, 227, seed=227)
     kw = dict(crop=227, mean=MEAN, out_dtype=dtype, act_scale=act_scale)
-    before = preprocess.crop_normalize_launches
+    before = COUNTS["k1.launches"]
     got = preprocess.preprocess_on_device(*args, **kw)
     torch.cuda.synchronize()
-    assert preprocess.crop_normalize_launches == before + 1
+    assert COUNTS["k1.launches"] == before + 1
     assert torch.equal(got, preprocess.crop_normalize_reference(*args, **kw))
 
 
@@ -128,10 +129,10 @@ def test_kernel_on_frames_already_cropped(cuda, n, s, size, dtype, act_scale):
                            generator=gen)
     zeros, flags = [0] * n, [False] * n
     kw = dict(crop=size, mean=MEAN, out_dtype=dtype, act_scale=act_scale)
-    before = preprocess.crop_normalize_launches
+    before = COUNTS["k1.launches"]
     got = preprocess.preprocess_on_device(frames, zeros, zeros, flags, **kw)
     torch.cuda.synchronize()
-    assert preprocess.crop_normalize_launches == before + 1
+    assert COUNTS["k1.launches"] == before + 1
     assert torch.equal(got, preprocess.crop_normalize_reference(frames, zeros, zeros, flags, **kw))
 
 
@@ -272,10 +273,10 @@ def test_int8_server_on_card_matches_cpu(cuda):
     qprog, qp, qs, report = quantize_for_serving(Program(g, device="cpu"), p, s,
                                                  [{"data": clips}], fold=False)
     assert len(report["quantized"]) == 29
-    before = qconv.qconv_launches
+    before = COUNTS["k3.launches"]
     cpu, card = _card_and_cpu_logits(cuda, qprog.graph, qp, qs, 64, "fc8", frames,
                                      dict(h_off=h_off, w_off=w_off, mirror=mirror))
-    assert qconv.qconv_launches == before + 29
+    assert COUNTS["k3.launches"] == before + 29
     assert torch.equal(card.argmax(-1), cpu.argmax(-1))
     assert ((card - cpu).norm() / cpu.norm()).item() < 1e-2
 
@@ -291,10 +292,10 @@ def test_fused_maxpool_equals_plain_version(cuda, shape, dtype, variant):
     shift = torch.randn(shape[-1], device=cuda, generator=gen) * 0.2
     kw = dict(relu=variant == "relu", affine=variant == "affine")
     args = (scale, shift) if variant == "affine" else ()
-    before = poolfuse.fused_maxpool_launches
+    before = COUNTS["k2.launches"]
     got = poolfuse.fused_maxpool_3x3s2(y, *args, **kw)
     torch.cuda.synchronize()
-    assert poolfuse.fused_maxpool_launches == before + 1
+    assert COUNTS["k2.launches"] == before + 1
     assert got.dtype == dtype and got.is_contiguous()
     assert torch.equal(got, poolfuse.fused_maxpool_3x3s2_reference(y, *args, **kw))
 
@@ -319,17 +320,17 @@ def test_fused_maxpool_propagates_nan_like_plain_version(cuda):
 def test_pool_route_takes_kernel_only_when_asked_and_never_under_a_gradient(cuda, monkeypatch):
     x = torch.randn(2, 16, 16, 8, device=cuda)
     want = poolfuse.fused_maxpool_3x3s2_reference(x)
-    before = poolfuse.fused_maxpool_launches
+    before = COUNTS["k2.launches"]
     assert torch.equal(pool_nd(x, kernel=3, stride=2, mode="max"), want)
-    assert poolfuse.fused_maxpool_launches == before  # variable unset: ATen
+    assert COUNTS["k2.launches"] == before  # variable unset: ATen
     monkeypatch.setenv("ECO_PALLAS_POOL", "1")
     assert torch.equal(pool_nd(x, kernel=3, stride=2, mode="max"), want)
-    assert poolfuse.fused_maxpool_launches == before + 1
+    assert COUNTS["k2.launches"] == before + 1
     # not supported (odd H), integer, or pad: the route stays on ATen
     pool_nd(x[:, :15], kernel=3, stride=2, mode="max")
     pool_nd(x.to(torch.int8), kernel=3, stride=2, mode="max")
     pool_nd(x, kernel=3, stride=2, pad=1, mode="max")
-    assert poolfuse.fused_maxpool_launches == before + 1
+    assert COUNTS["k2.launches"] == before + 1
     with pytest.raises(NotImplementedError, match="backward"):
         pool_nd(x.requires_grad_(), kernel=3, stride=2, mode="max")
     with pytest.raises(ValueError, match="contiguous"):
@@ -394,10 +395,10 @@ def test_qconv_equals_plain_version(cuda, nsp, c_in, groups, stride, pad, dilati
         kw["out_scale"] = qconv.qconv_nd_reference(x, w, scale_vec, bias, **kw).abs().max().item() / 200
     else:
         kw["out_dtype"] = torch.float32 if out == "f32" else torch.bfloat16
-    before = qconv.qconv_launches
+    before = COUNTS["k3.launches"]
     got = qconv.qconv_nd(x, w, scale_vec, bias, **kw)
     torch.cuda.synchronize()
-    assert qconv.qconv_launches == before + 1
+    assert COUNTS["k3.launches"] == before + 1
     assert got.is_contiguous()
     assert torch.equal(got, qconv.qconv_nd_reference(x, w, scale_vec, bias, **kw))
 
@@ -522,12 +523,12 @@ def test_int8_ops_take_the_kernel_on_the_card(cuda):
     fw_q, fw_scale = quantize_weight(torch.randn(10, 40, generator=gen))
     b = torch.randn(24, generator=gen)
     for out_scale in (None, 0.05):
-        before = qconv.qconv_launches
+        before = COUNTS["k3.launches"]
         got = [conv_nd_int8(x.to(cuda), qconv.kernel_layout(w_q).to(cuda), w_scale.to(cuda),
                             b.to(cuda), act_scale=0.02, pad=1, out_scale=out_scale),
                inner_product_int8(fx.to(cuda), fw_q.to(cuda), fw_scale.to(cuda),
                                   act_scale=0.03, out_scale=out_scale)]
-        assert qconv.qconv_launches == before + 2
+        assert COUNTS["k3.launches"] == before + 2
         want = [conv_nd_int8(x, w_q, w_scale, b, act_scale=0.02, pad=1, out_scale=out_scale),
                 inner_product_int8(fx, fw_q, fw_scale, act_scale=0.03, out_scale=out_scale)]
         for g, wt in zip(got, want):
@@ -556,11 +557,11 @@ def test_int8_max_pool_on_card_matches_cpu(cuda, shape, kernel, stride, pad):
     gen = torch.Generator().manual_seed(2)
     x = torch.randint(-127, 128, shape, dtype=torch.int8, generator=gen)
     want = pool_nd(x, kernel=kernel, stride=stride, pad=pad, mode="max")
-    before = poolfuse.fused_maxpool_launches
+    before = COUNTS["k2.launches"]
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("ECO_PALLAS_POOL", "1")
         got = pool_nd(x.to(cuda), kernel=kernel, stride=stride, pad=pad, mode="max")
-    assert poolfuse.fused_maxpool_launches == before
+    assert COUNTS["k2.launches"] == before
     assert got.dtype == torch.int8 and torch.equal(got.cpu(), want)
 
 
@@ -816,9 +817,9 @@ def test_int8_probe_conv_step_equals_plain_version(cuda):
 
     _, _, x, w = int8_probe.conv_operands(1536, 28, 96, cuda)
     ones = torch.ones(96, dtype=torch.float32, device=cuda)
-    k3_0 = qconv.qconv_launches
+    k3_0 = COUNTS["k3.launches"]
     got = int8_probe.int8_conv_step(x, w, ones)
-    assert qconv.qconv_launches == k3_0 + 1
+    assert COUNTS["k3.launches"] == k3_0 + 1
     want = qconv.qconv_nd_reference(x, w, ones, None, pad=1,
                                     out_scale=int8_probe.CONV_OUT_SCALE)
     torch.cuda.synchronize()

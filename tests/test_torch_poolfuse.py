@@ -19,6 +19,7 @@ from eco_tpu.ops.pallas.poolfuse import fused_maxpool_3x3s2 as jax_fused
 from eco_tpu.ops.pool import pool_nd as jax_pool_nd
 from eco_tpu_torch.ops import poolfuse
 from eco_tpu_torch.ops.pool import pool_nd
+from eco_tpu_torch.utils.tracing import COUNTS
 
 
 @pytest.fixture(autouse=True)
@@ -106,10 +107,10 @@ def test_pool_nd_with_the_variable_set_on_the_cpu_matches_the_reference(monkeypa
     x = torch.from_numpy(y)
     if dtype == np.float32:
         x.requires_grad_()
-    before = poolfuse.fused_maxpool_launches
+    before = COUNTS["k2.launches"]
     got = pool_nd(x, kernel=3, stride=2, mode="max")
     np.testing.assert_array_equal(got.detach().numpy(), want)
-    assert poolfuse.fused_maxpool_launches == before
+    assert COUNTS["k2.launches"] == before
     if dtype == np.float32:
         got.sum().backward()
         assert x.grad is not None

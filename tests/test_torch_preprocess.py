@@ -14,6 +14,7 @@ import torch
 from eco_tpu.convert.export_hlo import _crop_normalize_xla
 from eco_tpu.ops.pallas.preprocess import preprocess_on_device as jax_preprocess
 from eco_tpu_torch.ops import _build, preprocess
+from eco_tpu_torch.utils.tracing import COUNTS
 
 N, S, H, W, CROP = 4, 2, 20, 24, 16
 MEAN = (104.0, 117.0, 123.0)
@@ -66,7 +67,7 @@ def test_cpu_tensor_uses_plain_version_without_building(monkeypatch):
 
     monkeypatch.setattr(_build, "build", no_build)
     monkeypatch.setattr(_build, "load", no_build)
-    before = preprocess.crop_normalize_launches
+    before = COUNTS["k1.launches"]
     args = (torch.from_numpy(_frames(1)), torch.from_numpy(H_OFF),
             torch.from_numpy(W_OFF), torch.from_numpy(MIRROR))
     got = preprocess.preprocess_on_device(*args, crop=CROP, mean=MEAN)
@@ -74,7 +75,7 @@ def test_cpu_tensor_uses_plain_version_without_building(monkeypatch):
                                                out_dtype=torch.bfloat16)
     assert got.dtype == torch.bfloat16  # the reference's default clip type
     assert torch.equal(got, want)
-    assert preprocess.crop_normalize_launches == before
+    assert COUNTS["k1.launches"] == before
 
 
 @pytest.mark.parametrize("kind", ["numpy", "list", "cpu_int64", "cpu_int32", "bool"])
@@ -103,7 +104,7 @@ def test_cpu_frames_with_numpy_offsets_take_the_plain_version():
     """numpy offsets and mirrors on CPU frames: the plain version's result,
     no launch."""
     frames = torch.from_numpy(_frames(3))
-    before = preprocess.crop_normalize_launches
+    before = COUNTS["k1.launches"]
     for dtype, act_scale in ((torch.bfloat16, None), (torch.float32, None), (torch.int8, 0.37)):
         kw = dict(crop=CROP, mean=MEAN, out_dtype=dtype, act_scale=act_scale)
         got = preprocess.preprocess_on_device(frames, H_OFF, W_OFF, MIRROR, **kw)
@@ -111,7 +112,7 @@ def test_cpu_frames_with_numpy_offsets_take_the_plain_version():
             frames, torch.from_numpy(H_OFF), torch.from_numpy(W_OFF),
             torch.from_numpy(MIRROR), **kw)
         assert got.dtype == dtype and torch.equal(got, want)
-    assert preprocess.crop_normalize_launches == before
+    assert COUNTS["k1.launches"] == before
 
 
 def test_build_without_nvcc_raises_a_clear_error(monkeypatch, tmp_path):
