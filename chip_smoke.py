@@ -7,8 +7,8 @@
 Phases (every failure raises; the exit code is then non-zero):
 
 1. The card's name and power limit (nvidia-smi), and the build of the CUDA
-   kernels ``eco_tpu_torch/csrc/{preprocess,poolfuse,qconv}.cu``, one nvcc
-   each, started together.
+   kernels ``eco_tpu_torch/csrc/{preprocess,poolfuse,qconv,pool}.cu``, one
+   nvcc each, started together.
 2. K1 against its plain PyTorch version on the card at the serving shape
    (8, 16, 256, 340, 3) uint8, random in-range offsets and mirrors, from the
    device and from the host, in bf16, f32 and int8: the outputs must be
@@ -21,7 +21,8 @@ Phases (every failure raises; the exit code is then non-zero):
    batch 8 with seeded random weights, optimized for inference, served by
    the bf16 ``UInt8Server`` from uint8 frames in pinned host memory: one
    warm-up request and ten timed ones.  Probabilities must be finite,
-   (8, 400) and sum to 1; the kernel must have launched once per request.
+   (8, 400) and sum to 1; K1 must have launched once per request, K4 once
+   per pool (four a request), and no float pool may take the padded route.
    The logits are compared with an f32 run of the same server (TF32 off),
    and that run with the f32 server on the CPU for two of the videos.
 4. K2, the fused 3x3/s2 max pool, against its plain PyTorch version at the
@@ -31,6 +32,13 @@ Phases (every failure raises; the exit code is then non-zero):
    ReLU and with a seeded affine: equal (``torch.equal``).  Then K2, its
    plain version, the ``pool_nd`` route it replaces (pad + ``max_pool2d``)
    and ``max_pool2d(ceil_mode=True)`` timed in bf16, beside K2's bound.
+   Then K4, the one-pass Caffe pool, against its plain version (the padded
+   route) at every pool of ECO-Lite, ECO-Full and CaffeNet at 32 videos x 16
+   frames (``K4_POOLS``), in f32, bf16 and f16: equal (``torch.equal``);
+   then K4, the route and the library's pool (``max_pool2d`` /
+   ``avg_pool2d``, ``ceil_mode``) timed in bf16 in CUDA graphs beside K4's
+   bound, with K4's host time a call, by pool and summed over an ECO-Lite
+   and an ECO-Full request.
 5. Training at full width: the ECO-Lite Kinetics TRAIN graph (dropout 0.3)
    through ``RawPreprocessProgram`` (K1 in the step) and the ``Trainer``,
    bf16, Nesterov as ``examples/train_synthetic.py``, on one repeated batch
@@ -54,8 +62,9 @@ Phases (every failure raises; the exit code is then non-zero):
    at the 1x1 and fc shapes, ``torch._int_mm`` timed in CUDA graphs, its
    plain version on the host's clock, beside K3's bound.
 10. Full-width ECO-Full Kinetics (``fc8N``) served as in phase 3, with the
-    same checks, then again without and with ``ECO_PALLAS_POOL=1`` (K2 four
-    times a request: pool1, pool2, inception_3c_pool and inception_4e_pool).
+    same checks (K4 13 times a request), then again without and with
+    ``ECO_PALLAS_POOL=1`` (K2 four times a request: pool1, pool2,
+    inception_3c_pool and inception_4e_pool; K4 the other nine).
 11. int8 serving of ECO-Lite and of ECO-Full: ``quantize_for_serving`` of the
     optimized graph, calibrated on two batches of K1's f32 clips, served in
     bf16 by ``UInt8Server(int8_input=True)`` (K1 emits int8 into conv1): K1
@@ -216,7 +225,7 @@ from eco_tpu_torch.data import (
 from eco_tpu_torch.models import build_eco_lite, get_model
 from eco_tpu_torch.apps import serving
 from eco_tpu_torch.examples import quantized_serving
-from eco_tpu_torch.ops import _build, pool, poolfuse, preprocess, qconv, resize
+from eco_tpu_torch.ops import _build, pool, poolfuse, poolk, preprocess, qconv, resize
 from eco_tpu_torch.parallel import (
     DATA_AXIS,
     MODEL_AXIS,
@@ -260,6 +269,30 @@ POOL_SHAPES = {"pool1": (BATCH * SEGMENTS, 112, 112, 64),
                "pool2": (BATCH * SEGMENTS, 56, 56, 192),
                "inception_3c_pool": (BATCH * SEGMENTS, 28, 28, 320),
                "inception_4e_pool": (BATCH * SEGMENTS, 14, 14, 608)}
+# every pool of ECO-Lite, ECO-Full and CaffeNet, which K4 takes in serving:
+# (H, W, C) of a frame, kernel, stride, pad, mode, and how often an ECO-Lite
+# and an ECO-Full request run it; held and timed at the benchmark's 32
+# videos x 16 frames (the card tests and the plan's CPU tests read it too)
+K4_POOLS = {
+    "pool1": ((112, 112, 64), 3, 2, 0, "max", 1, 1),
+    "pool2": ((56, 56, 192), 3, 2, 0, "max", 1, 1),
+    "inception_3a_pool": ((28, 28, 192), 3, 1, 1, "ave", 1, 1),
+    "inception_3b_pool": ((28, 28, 256), 3, 1, 1, "ave", 1, 1),
+    "inception_3c_pool": ((28, 28, 320), 3, 2, 0, "max", 0, 1),
+    "inception_4a_pool": ((14, 14, 576), 3, 1, 1, "ave", 0, 3),  # 4a, 4b, 4c
+    "inception_4d_pool": ((14, 14, 608), 3, 1, 1, "ave", 0, 1),
+    "inception_4e_pool": ((14, 14, 608), 3, 2, 0, "max", 0, 1),
+    "inception_5a_pool": ((7, 7, 1056), 3, 1, 1, "ave", 0, 1),
+    "inception_5b_pool": ((7, 7, 1024), 3, 1, 1, "max", 0, 1),
+    "global_pool2D": ((7, 7, 1024), 7, 1, 0, "ave", 0, 1),
+    "caffenet_pool1": ((55, 55, 96), 3, 2, 0, "max", 0, 0),
+    "caffenet_pool2": ((27, 27, 256), 3, 2, 0, "max", 0, 0),
+    "caffenet_pool5": ((13, 13, 256), 3, 2, 0, "max", 0, 0),
+}
+K4_FRAMES = 32 * SEGMENTS
+K4_GRAPH_CALLS = 20  # calls a CUDA graph when K4 and what it replaces are timed
+K4_PER_REQUEST = {model: sum(v[col] for v in K4_POOLS.values())
+                  for model, col in (("eco_lite_kinetics", 5), ("eco_full_kinetics", 6))}
 TRAIN_STEPS = 10
 NUM_CLASSES = 400
 # examples/train_synthetic.py's solver
@@ -681,8 +714,8 @@ def _f32_logits_card_and_cpu(dev, graph, params, state, request, fc: str):
 
 def serve_float(dev, card: str, model: str, fc: str, reqs):
     """Full-width bf16 serving of ``model``, optimized for inference; returns
-    the server, its graph, params and state, K1's launches and the bf16
-    logits of the second request."""
+    the server, its graph, params and state, K1's and K4's launches and the
+    bf16 logits of the second request."""
     t0 = time.perf_counter()
     graph = get_model(model, batch=BATCH, num_segments=SEGMENTS, crop_size=CROP)
     params, state = Program(graph, device=dev).init(
@@ -701,6 +734,12 @@ def serve_float(dev, card: str, model: str, fc: str, reqs):
     if launches != (len(reqs), 0, 0):
         raise AssertionError(f"{model} serving launched K1, K2, K3 {launches} times "
                              f"for {len(reqs)} requests")
+    k4, route = _pool_counts()
+    if k4 != K4_PER_REQUEST[model] * len(reqs) or route:
+        raise AssertionError(f"{model} serving launched K4 {k4} times and took the pool "
+                             f"route {route} times for {len(reqs)} requests")
+    print(f"{model} serving: K4 {k4} launches, {k4 / len(reqs):g} a request; "
+          f"the pool route none")
     print(f"{model} serving: {len(reqs)} requests ({BATCH} videos each), K1 launches "
           f"{launches[0]}; warm-up {warm_s:.2f} s; timed requests (ms, in order) "
           f"{[round(t, 3) for t in per_req]}, median "
@@ -725,7 +764,7 @@ def serve_float(dev, card: str, model: str, fc: str, reqs):
           f"(bound {F32_CARD_VS_CPU_REL_L2_BOUND})")
     if not rel_cpu <= F32_CARD_VS_CPU_REL_L2_BOUND:
         raise AssertionError(f"{model} f32 logits on the card off the CPU's by rel L2 {rel_cpu}")
-    return server, (g_opt, p_opt, s_opt), launches[0], logits16
+    return server, (g_opt, p_opt, s_opt), launches[0], k4, logits16
 
 
 @contextlib.contextmanager
@@ -743,7 +782,7 @@ def _pallas_pool(on: bool):
 
 
 def _reset_counts():
-    for k in ("k1.launches", "k2.launches", "k3.launches"):
+    for k in ("k1.launches", "k2.launches", "k3.launches", "k4.launches", "pool.route"):
         COUNTS[k] = 0
 
 
@@ -751,6 +790,13 @@ def _counts():
     """K1's, K2's and K3's launches since ``_reset_counts``."""
     torch.cuda.synchronize()
     return COUNTS["k1.launches"], COUNTS["k2.launches"], COUNTS["k3.launches"]
+
+
+def _pool_counts():
+    """K4's launches and the float pools on the card that took the padded
+    route, since ``_reset_counts``."""
+    torch.cuda.synchronize()
+    return COUNTS["k4.launches"], COUNTS["pool.route"]
 
 
 def check_pool_kernel(dev) -> dict:
@@ -813,6 +859,73 @@ def check_pool_kernel(dev) -> dict:
     keys = ("ms", "plain_ms", "pool_nd_route_ms", "library_ms", "bound_ms")
     total = {k: sum(t[k] for t in times.values()) for k in keys}
     return {"max_abs_err": max_err, **total, "bound_by": "bytes", "by_shape": times}
+
+
+def check_pool4_kernel(dev, card: str) -> dict:
+    """K4 against its plain version (the padded route) at K4_POOLS in f32,
+    bf16 and f16 (``torch.equal``), then timed in bf16 in CUDA graphs (device
+    time, without the host's cost a call) beside its bound, the route and
+    the library's pool (``max_pool2d`` / ``avg_pool2d`` with ``ceil_mode`` on
+    the channels-last NCHW view, a yardstick: Caffe's divisor and clip
+    differ from it at some shapes), and K4's host time a call (the wrapper,
+    its cached plan and the launch); returns the times by pool and summed
+    over an ECO-Lite and an ECO-Full request."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    times = {}
+    for name, ((h, w, c), k, s, p, mode, _, _) in K4_POOLS.items():
+        geom = ((k, k), (s, s), (p, p))
+        base = torch.randn((K4_FRAMES, h, w, c), device=dev, generator=gen)
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            y = base.to(dtype)
+            got = poolk.caffe_pool2d(y, *geom, mode)
+            want = pool.padded_pool(y, *geom, mode)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                err = (got.float() - want.float()).abs().max().item()
+                raise AssertionError(f"K4 disagrees with its plain version: {name} {dtype} "
+                                     f"max_abs_err={err}")
+        y = base.to(torch.bfloat16)
+        del base, got, want
+        nchw = y.permute(0, 3, 1, 2)
+        if mode == "max":
+            library = lambda: torch.nn.functional.max_pool2d(nchw, k, s, p, ceil_mode=True)
+        else:
+            library = lambda: torch.nn.functional.avg_pool2d(
+                nchw, k, s, p, ceil_mode=True, count_include_pad=True)
+        kernel = lambda: poolk.caffe_pool2d(y, *geom, mode)
+        plain = lambda: pool.padded_pool(y, *geom, mode)
+        # plain, library, kernel, kernel, library, plain
+        p1, l1, k1, k2, l2, p2 = (_graph_ms(f, K4_GRAPH_CALLS) for f in
+                                  (plain, library, kernel, kernel, library, plain))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(K4_GRAPH_CALLS):
+            kernel()
+        host_ms = (time.perf_counter() - t0) * 1e3 / K4_GRAPH_CALLS
+        ho, wo = kernel().shape[1:3]
+        moved = (y.numel() + K4_FRAMES * ho * wo * c) * 2  # bf16 read + write
+        t = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": (l1 + l2) / 2,
+             "bound_ms": _bound_ms(moved)[0], "moved_mb": moved / 1e6,
+             "host_ms_per_call": host_ms}
+        print(f"K4 bf16 {name} {tuple(y.shape)} {k}x{k}/s{s}/p{p} {mode}, equal to the "
+              f"route in f32/bf16/f16; CUDA graphs of {K4_GRAPH_CALLS} calls: kernel "
+              f"{t['ms']:.4f} ms ({k1:.4f}, {k2:.4f}), route {t['plain_ms']:.4f} ms "
+              f"({p1:.4f}, {p2:.4f}), library {t['library_ms']:.4f} ms ({l1:.4f}, "
+              f"{l2:.4f}); bound {t['bound_ms']:.4f} ms ({moved / 1e6:.1f} MB), kernel at "
+              f"{t['bound_ms'] / t['ms']:.1%} of it; host {host_ms:.4f} ms a call; {card}")
+        times[name] = t
+        del y, nchw
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "host_ms_per_call")
+    per_request = {}
+    for model, col in (("eco_lite_kinetics", 5), ("eco_full_kinetics", 6)):
+        per_request[model] = {key: sum(times[n][key] * K4_POOLS[n][col] for n in times)
+                              for key in keys}
+        r = per_request[model]
+        print(f"K4 {model}, a request's pools at {K4_FRAMES} frames: kernel {r['ms']:.4f} ms, "
+              f"route {r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
+              f"{r['bound_ms']:.4f} ({r['bound_ms'] / r['ms']:.1%}); K4's host "
+              f"{r['host_ms_per_call']:.4f} ms; {card}")
+    return {"bound_by": "bytes", "by_pool": times, "per_request": per_request}
 
 
 def _qconv_case(dev, gen, name):
@@ -1186,11 +1299,13 @@ def test_pass(trainer, ts, batches) -> int:
 
 
 def serve_with_pool_kernel(server, reqs, card: str, model: str,
-                           k2_per_request: int) -> tuple[int, int]:
+                           k2_per_request: int) -> tuple[int, int, int]:
     """The serving requests in blocks without, with, with and without K2;
-    returns K1's and K2's launches in the blocks with it."""
+    returns K1's and K2's launches in the blocks with it, and K4's in all
+    four (K4 takes every pool that K2 does not)."""
     times = {False: [], True: []}
     launches = [0, 0]
+    k4_launches = 0
     outs = {}
     for on in (False, True, True, False):
         with _pallas_pool(on):
@@ -1201,9 +1316,14 @@ def serve_with_pool_kernel(server, reqs, card: str, model: str,
                 outs[on] = server(frames, **aug)
                 events[i].record()
             k1, k2, k3 = _counts()
+            k4, route = _pool_counts()
         times[on] += [a.elapsed_time(b) for a, b in zip(events, events[1:])]
         if k1 != len(reqs) or k2 != (k2_per_request * len(reqs) if on else 0) or k3:
             raise AssertionError(f"{model} serving launched K1 {k1}, K2 {k2} and K3 {k3} times")
+        if k4 != (K4_PER_REQUEST[model] - (k2_per_request if on else 0)) * len(reqs) or route:
+            raise AssertionError(f"{model} serving launched K4 {k4} times and took the pool "
+                                 f"route {route} times, K2 {'on' if on else 'off'}")
+        k4_launches += k4
         if on:
             launches = [launches[0] + k1, launches[1] + k2]
     probs = outs[True].float()
@@ -1216,9 +1336,10 @@ def serve_with_pool_kernel(server, reqs, card: str, model: str,
           f"{statistics.median(times[True]):.3f} ms per request of {BATCH} videos "
           f"({len(times[True])} requests) against {statistics.median(times[False]):.3f} ms "
           f"without ({len(times[False])}), blocks off/on/on/off; K2 launches "
-          f"{launches[1]} = {k2_per_request} per request; last request's probs equal "
+          f"{launches[1]} = {k2_per_request} per request, K4 the other "
+          f"{K4_PER_REQUEST[model] - k2_per_request}; last request's probs equal "
           f"without K2: True; {card}")
-    return launches[0], launches[1]
+    return launches[0], launches[1], k4_launches
 
 
 def _calibration_batches(dev):
@@ -3098,30 +3219,38 @@ def main() -> None:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    _build.build_all(["preprocess", "poolfuse", "qconv"])
+    _build.build_all(["preprocess", "poolfuse", "qconv", "pool"])
     preprocess.build_kernel()
     poolfuse.build_kernel()
     qconv.build_kernel()
-    print(f"K1 + K2 + K3 build (three nvcc together) and load: {time.perf_counter() - t0:.2f} s")
+    poolk.build_kernel()
+    print(f"K1 + K2 + K3 + K4 build (four nvcc together) and load: "
+          f"{time.perf_counter() - t0:.2f} s")
     baseline = _build_k3_baseline(args.k3_baseline) if args.k3_baseline else None
     k1_baseline = _build_k1_baseline(args.k1_baseline) if args.k1_baseline else None
 
     checked = check_kernel(dev, card, k1_baseline)
     checked.update(check_k1_online(dev, card))
     reqs = _requests(1 + TIMED_REQUESTS)
-    server, lite, k1_serve, lite_logits16 = serve_float(dev, card, "eco_lite_kinetics", "fc8",
-                                                        reqs)
+    # the serving blocks with K2 run each request twice without it and twice with it
+    k4_requests = {"serve": len(reqs), "serve_k2": 4 * len(reqs), "serve_full": len(reqs),
+                   "serve_full_k2": 4 * len(reqs)}
+    server, lite, k1_serve, k4_serve, lite_logits16 = serve_float(
+        dev, card, "eco_lite_kinetics", "fc8", reqs)
     pool_checked = check_pool_kernel(dev)
+    pool4_checked = check_pool4_kernel(dev, card)
     trainer, ts, batch, k1_train = train(dev, card)
     f32_step_card_vs_cpu(dev, batch)
     test_batches = [{k: v[0] for k, v in b.items()} for b in (batch, _train_batch(SEED + 3))]
     k2_test = test_pass(trainer, ts, test_batches)
-    k1_k2serve, k2_serve = serve_with_pool_kernel(server, reqs, card, "eco_lite_kinetics", 2)
+    k1_k2serve, k2_serve, k4_k2serve = serve_with_pool_kernel(server, reqs, card,
+                                                              "eco_lite_kinetics", 2)
     del trainer, ts, server
     qconv_checked = check_qconv_kernel(dev)
-    server, full, k1_full, full_logits16 = serve_float(dev, card, "eco_full_kinetics", "fc8N",
-                                                       reqs)
-    k1_full_k2, k2_full = serve_with_pool_kernel(server, reqs, card, "eco_full_kinetics", 4)
+    server, full, k1_full, k4_full, full_logits16 = serve_float(
+        dev, card, "eco_full_kinetics", "fc8N", reqs)
+    k1_full_k2, k2_full, k4_full_k2 = serve_with_pool_kernel(server, reqs, card,
+                                                             "eco_full_kinetics", 4)
     del server
     k1_int8_lite, k3_int8_lite, server, int8_lite = serve_int8(
         dev, card, "eco_lite_kinetics", "fc8", lite + (lite_logits16,), reqs)
@@ -3154,6 +3283,8 @@ def main() -> None:
                 **online_counts["k1"], **k1_e2e, "remat": remat["k1"], **cli_counts["k1"],
                 **tail["k1"], **parallel["k1"], **probe["k1"]}
     k2_paths = {"test": k2_test, "serve_k2": k2_serve, "serve_full_k2": k2_full}
+    k4_paths = {"serve": k4_serve, "serve_k2": k4_k2serve, "serve_full": k4_full,
+                "serve_full_k2": k4_full_k2}
     k3_paths = {"serve_int8_lite": k3_int8_lite, "serve_int8_full": k3_int8_full,
                 **online_counts["k3"], **cli_counts["k3"], **examples["k3"], **probe["k3"]}
     records = [
@@ -3185,6 +3316,16 @@ def main() -> None:
             **qconv_checked,
             "request_ms": k3_request,
             "probe": probe["probe"],
+        },
+        {
+            "name": "caffe_pool2d",
+            "route": "cuda",
+            "source": "eco_tpu_torch/csrc/pool.cu",
+            "replaces": "eco_tpu_torch/ops/pool.py:padded_pool on the card (no TPU kernel)",
+            "launches": sum(k4_paths.values()),
+            "launches_by_path": k4_paths,
+            "launches_per_request": {k: v / k4_requests[k] for k, v in k4_paths.items()},
+            **pool4_checked,
         },
     ]
     print(json.dumps({"kernels": records}))

@@ -3,21 +3,44 @@
 Twin of ``eco_tpu/ops/pool.py:pool_nd`` and ``global_avg_pool``.  Caffe's
 ceil-mode output dims and last-window clip become an explicit asymmetric
 ``(pad, pad_hi)`` padding computed statically by
-``utils.shapes.caffe_pool_out_dim``; PyTorch's ``ceil_mode=True`` is
-not used, because it agrees with Caffe only on some shapes.
+``utils.shapes.caffe_pool_out_dim``; PyTorch's ``ceil_mode=True`` agrees
+with Caffe only on some shapes, and only the AVE route below uses it, on
+those.
+
+``pool_nd`` routes by what the input shows:
+
+- a float 2D MAX or AVE pool of a contiguous tensor on the card, with no
+  gradient asked and no trace running, goes to K4, the one-pass kernel of
+  ``ops/poolk.py`` (``poolk.takes``); with ``ECO_PALLAS_POOL=1`` a float
+  3x3/s2/pad-0 max pool with even H and W on the card goes to the fused
+  kernel of ``ops/poolfuse.py`` (K2) first, as the reference's goes to its
+  Pallas kernel on the TPU; K2 has no backward and raises when a gradient
+  is asked through it;
+- everything else takes the padded route, :func:`padded_pool`, which is
+  also K4's plain version.  ``COUNTS["pool.route"]`` counts the float pools
+  on the card that take it.
+
+The padded route:
 
 - MAX pads with ``-inf`` (the integer minimum for integer types) and then
   takes unpadded windows: ATen's ``max_pool{1,2,3}d`` for floats, a window
-  view and ``amax`` for integers, which ATen's pools do not take.  With
-  ``ECO_PALLAS_POOL=1``, a float 3x3/s2/pad-0 max pool with even H and W on
-  the card goes to the fused kernel of ``ops/poolfuse.py`` instead, as the
-  reference's goes to its Pallas kernel on the TPU; that route has no
-  backward and raises when a gradient is asked through it.
-- AVE sums the zero-padded windows in f32 and divides by the static
-  per-position divisor grid of ``caffe_avg_pool_divisors``, so padded cells
-  count in the denominator as in pooling_layer.cpp.  The grid is made once
-  per geometry and device and kept there: a copy from host memory at every
-  call would wait for the stream.
+  view and ``amax`` for integers, which ATen's pools do not take.
+- AVE is pooling_layer.cpp's: each window's image cells added in f32, one
+  add at a time in row-major order from +0.0, divided by the window
+  clipped to H + pad (``caffe_avg_pool_divisors``), rounded once to the
+  input's type.  That is ATen's ``avg_pool{1,2}d`` with Caffe's pads,
+  ``ceil_mode`` and ``count_include_pad``, on the card and on the CPU,
+  wherever ATen takes the pads (at most half the window) and its ceil rule
+  gives Caffe's dims (it drops a last window that starts past the input
+  even without a pad; Caffe keeps it), and no gradient is asked.
+  Elsewhere (and in 3D, where ATen's CPU pool takes no bf16, and under a
+  gradient, where ATen's CUDA backward of that call is off) the route adds
+  the same cells in the same order in ATen's pool with a divisor of 1 on
+  the zero-padded f32 tensor (a padded cell adds +0.0, which changes no sum
+  that starts from +0.0) and divides by the divisor grid, made once per
+  geometry and device and kept there: a copy from host memory at every call
+  would wait for the stream.  K4 adds in this order, so the two give the
+  same bits; with and without a gradient the route gives the same values.
 
 Spans (``utils/tracing.py``): ``eco.pad`` around every spatial padding,
 ``eco.layout`` around the max pool's move back to channels-last.
@@ -37,11 +60,12 @@ from eco_tpu_torch.utils.shapes import (
     caffe_pool_out_dim,
     normalize_spatial_param,
 )
-from eco_tpu_torch.ops import poolfuse
+from eco_tpu_torch.ops import poolfuse, poolk
 from eco_tpu_torch.ops.layout import extract_windows
-from eco_tpu_torch.utils.tracing import span
+from eco_tpu_torch.utils.tracing import COUNTS, span
 
 _MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+_AVG_POOL = {1: F.avg_pool1d, 2: F.avg_pool2d, 3: F.avg_pool3d}
 
 
 def _pad_spatial(x, pad_cfg, value):
@@ -85,43 +109,67 @@ def pool_nd(
 ) -> torch.Tensor:
     """Pool over the spatial axes of a channels-last (N, *spatial, C) tensor."""
     num_spatial = x.ndim - 2
-    spatial = tuple(x.shape[1:-1])
     if global_pooling:
-        kernel = spatial
+        kernel = tuple(x.shape[1:-1])
         stride = (1,) * num_spatial
         pad = (0,) * num_spatial
     kernel = normalize_spatial_param(kernel, num_spatial)
     stride = normalize_spatial_param(stride, num_spatial, default=1)
     pad = normalize_spatial_param(pad, num_spatial, default=0)
-
-    pad_cfg = []
-    for size, k, s, p in zip(spatial, kernel, stride, pad):
-        _, pad_hi = caffe_pool_out_dim(size, k, s, p)
-        pad_cfg.append((p, pad_hi))
-    window_dims = tuple(range(-num_spatial, 0))
-
     mode = mode.lower()
+    if mode in ("avg", "mean"):
+        mode = "ave"
+    if mode not in ("max", "ave"):
+        raise ValueError(f"unknown pool mode {mode!r}")
+    if (mode == "max" and os.environ.get("ECO_PALLAS_POOL") == "1"
+            and x.device.type == "cuda" and x.dtype.is_floating_point
+            and poolfuse.supports(x.shape, kernel, stride, pad, mode)):
+        return poolfuse.fused_maxpool_3x3s2(x)
+    if poolk.takes(x, mode):
+        return poolk.caffe_pool2d(x, kernel, stride, pad, mode)
+    if x.device.type == "cuda" and x.dtype.is_floating_point:
+        COUNTS["pool.route"] += 1
+    return padded_pool(x, kernel, stride, pad, mode)
+
+
+def padded_pool(x: torch.Tensor, kernel, stride, pad, mode: str) -> torch.Tensor:
+    """The padded route of :func:`pool_nd` ("max" or "ave"; ``kernel``,
+    ``stride`` and ``pad`` one entry a spatial axis), and K4's plain
+    version."""
+    num_spatial = x.ndim - 2
+    spatial = tuple(x.shape[1:-1])
+    dims = [caffe_pool_out_dim(size, k, s, p) for size, k, s, p in zip(spatial, kernel, stride, pad)]
+    out = [dim for dim, _ in dims]
+    pad_cfg = [(p, pad_hi) for p, (_, pad_hi) in zip(pad, dims)]
     if mode == "max":
-        if (os.environ.get("ECO_PALLAS_POOL") == "1" and x.device.type == "cuda"
-                and x.dtype.is_floating_point
-                and poolfuse.supports(x.shape, kernel, stride, pad, mode)):
-            return poolfuse.fused_maxpool_3x3s2(x)
         if x.dtype.is_floating_point:
             xp = _pad_spatial(x, pad_cfg, float("-inf"))
             y = _MAX_POOL[num_spatial](xp.movedim(-1, 1), kernel, stride)
             with span("eco.layout"):
                 return y.movedim(1, -1).contiguous()
         xp = _pad_spatial(x, pad_cfg, torch.iinfo(x.dtype).min)
-        return _windows(xp, kernel, stride).amax(dim=window_dims)
-    if mode in ("ave", "avg", "mean"):
-        xp = _pad_spatial(x.float(), pad_cfg, 0.0)
-        acc = _windows(xp, kernel, stride).sum(dim=window_dims)
-        # a trace (torch.export) makes its own grid: a tensor made inside one
-        # trace must not be cached for the next
-        divisors = ave_divisors.__wrapped__ if torch.compiler.is_compiling() else ave_divisors
-        div = divisors(spatial, kernel, stride, pad, x.device)
-        return (acc / div).to(x.dtype)
-    raise ValueError(f"unknown pool mode {mode!r}")
+        return _windows(xp, kernel, stride).amax(dim=tuple(range(-num_spatial, 0)))
+    # ATen's own pads where it takes them and its ceil rule gives Caffe's dims,
+    # and no gradient is asked: ATen's CUDA backward of this call put an f32
+    # train step of ECO-Lite 0.27-0.29 (relative L2 of the update) off the
+    # CPU's on an H100, where the zero-padded call's backward agrees
+    if (x.dtype.is_floating_point and num_spatial < 3
+            and not (torch.is_grad_enabled() and x.requires_grad)) and all(
+            p <= k // 2 and (p or (dim - 1) * s < size)
+            for size, k, s, p, dim in zip(spatial, kernel, stride, pad, out)):
+        y = _AVG_POOL[num_spatial](x.movedim(-1, 1), kernel, stride, pad, ceil_mode=True,
+                                   count_include_pad=True)
+        return y.movedim(1, -1).contiguous()
+    xp = _pad_spatial(x.float(), pad_cfg, 0.0).movedim(-1, 1)
+    if num_spatial == 1:  # ATen's 1D average pool takes no divisor
+        acc = F.avg_pool2d(xp[:, :, None], (1, *kernel), (1, *stride), divisor_override=1)[:, :, 0]
+    else:
+        acc = _AVG_POOL[num_spatial](xp, kernel, stride, divisor_override=1)
+    # a trace (torch.export) makes its own grid: a tensor made inside one
+    # trace must not be cached for the next
+    divisors = ave_divisors.__wrapped__ if torch.compiler.is_compiling() else ave_divisors
+    div = divisors(spatial, tuple(kernel), tuple(stride), tuple(pad), x.device)
+    return (acc.movedim(1, -1) / div).to(x.dtype).contiguous()
 
 
 def extract_pool_windows(x: torch.Tensor, kernel, stride) -> torch.Tensor:

@@ -1,0 +1,184 @@
+"""K4: Caffe ceil-mode 2D MAX and AVE pooling of a channels-last float tensor
+on the card, in one pass.
+
+``ops/pool.py:pool_nd`` sends every float 2D MAX or AVE pool here when
+:func:`takes` holds: the tensor is on the card and contiguous, no gradient is
+asked, and no ``torch.export`` or ``torch.compile`` trace runs.  Everything
+else (training, integer pools, 1D and 3D pools, traces, CPU and meta
+tensors) keeps the padded route, ``pool.padded_pool``, which is also K4's
+plain version: the kernel gives its bits in every float type
+(``csrc/pool.cu`` says how the AVE sum order makes that so).
+
+- :func:`caffe_pool2d` launches the hand-written kernel ``csrc/pool.cu``
+  (built with ``nvcc`` at first use) on the current stream, or raises on
+  what it does not take.
+- :func:`plan` picks the kernel's path and tile from the shapes, the one
+  place that decides them; the CPU tests reach it.
+- ``COUNTS["k4.launches"]`` (``utils/tracing.py``) counts launches.
+
+The kernel has no backward: under a gradient ``pool_nd`` keeps the route.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import NamedTuple
+
+import torch
+
+from eco_tpu_torch.ops import _build
+from eco_tpu_torch.utils.shapes import caffe_pool_out_dim
+from eco_tpu_torch.utils.tracing import COUNTS
+
+_DTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_MODE = {"max": 0, "ave": 1}
+# output columns a thread takes, by (kh, kw, sh, sw): the template
+# specialisations of csrc/pool.cu; any other window takes 1
+_PER_THREAD = {(3, 3, 2, 2): 2, (3, 3, 1, 1): 4, (7, 7, 1, 1): 1}
+THREADS = 256            # most threads a block (the kernel's launch bound)
+ROW_OUTPUTS = 32         # most output columns a tile
+SMEM_BYTES = 48 * 1024   # most shared memory a tile's input band takes
+MIN_BLOCKS = 2 * 132     # two blocks for each SM of an H100
+
+
+class Plan(NamedTuple):
+    """The kernel's path, output dims and tile for one call.  ``tiled``
+    False is the scalar path, one thread per output element; the tile
+    fields are then unused."""
+
+    ho: int
+    wo: int
+    tiled: bool
+    per: int = 1       # output columns a thread
+    tx: int = 1        # threads along a tile's row
+    toh: int = 1       # output rows a tile
+    cv: int = 1        # 16-byte channel vectors a tile
+    tiles: tuple = (0, 0, 0)   # tiles along Ho, along Wo, and channel chunks
+    threads: int = 0   # a block
+    smem: int = 0      # bytes of shared memory a block
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.cache
+def plan(shape, kernel, stride, pad, itemsize: int, aligned: bool) -> Plan:
+    """The path and tile for pooling (N, H, W, C) of ``itemsize``-byte
+    floats; ``aligned``: the input's pointer is 16-byte aligned (an output
+    from the caching allocator always is, and the kernel refuses one that is
+    not).  Cached: a serving request asks for the same few plans at every
+    call.  ``csrc/pool.cu`` launches the tile it is given and only checks
+    that it is within the kernel's limits.
+
+    The tile path takes C * itemsize a multiple of 16 on aligned pointers.
+    A tile is ``toh`` output rows by ``tx * per`` output columns (at most
+    ROW_OUTPUTS, the row split evenly) by ``cv`` vectors, within THREADS
+    threads; once a tile covers the whole output plane, spare threads go to
+    more channels.  Its input band must fit in SMEM_BYTES, shrinking rows,
+    then columns, then channels; where even one cell's window does not fit,
+    the scalar path takes it.  Then rows, and after them channels (down to
+    a warp a block), are split until the grid has MIN_BLOCKS blocks.
+    """
+    n, h, w, c = shape
+    (kh, kw), (sh, sw), (ph, pw) = kernel, stride, pad
+    ho, wo = caffe_pool_out_dim(h, kh, sh, ph)[0], caffe_pool_out_dim(w, kw, sw, pw)[0]
+    el = 16 // itemsize
+    if not aligned or c % el:
+        return Plan(ho, wo, tiled=False)
+    groups = c // el
+    per = _PER_THREAD.get((kh, kw, sh, sw), 1)
+    tx = _ceil(_ceil(wo, _ceil(wo, ROW_OUTPUTS)), per)
+    cv = min(groups, 8)
+    toh = max(1, min(ho, THREADS // (cv * tx)))
+    toh = _ceil(ho, _ceil(ho, toh))
+    if toh == ho and tx * per >= wo:
+        cv = min(groups, max(cv, THREADS // (tx * toh)))
+
+    def smem(toh, tx, cv):
+        return ((toh - 1) * sh + kh) * ((tx * per - 1) * sw + kw) * cv * 16
+
+    while smem(toh, tx, cv) > SMEM_BYTES:
+        if toh > 1:
+            toh = _ceil(toh, 2)
+        elif tx > 1:
+            tx = _ceil(tx, 2)
+        elif cv > 1:
+            cv = max(1, SMEM_BYTES // smem(1, 1, 1))
+            if smem(toh, tx, cv) > SMEM_BYTES:
+                return Plan(ho, wo, tiled=False)
+        else:
+            return Plan(ho, wo, tiled=False)
+
+    def tiles(toh, cv):
+        return _ceil(ho, toh), _ceil(wo, tx * per), _ceil(groups, cv)
+
+    while n * math.prod(tiles(toh, cv)) < MIN_BLOCKS:
+        if toh > 1:
+            toh = _ceil(toh, 2)
+        elif cv * tx > 32:
+            cv = _ceil(cv, 2)
+        else:
+            break
+    # the same number of chunks, spread evenly over the channel vectors
+    cv = _ceil(groups, _ceil(groups, cv))
+    return Plan(ho, wo, True, per, tx, toh, cv, tiles(toh, cv), cv * tx * toh,
+                smem(toh, tx, cv))
+
+
+@functools.cache
+def _kernel():
+    fn = _build.load("pool").eco_caffe_pool2d
+    fn.argtypes = (
+        [ctypes.c_void_p] * 2           # x, out
+        + [ctypes.c_int] * 24           # n, h, w, c, ho, wo, kh, kw, sh, sw, ph, pw,
+                                        # dtype, ave, tiled, per, tx, toh, cv, row
+                                        # tiles, column tiles, chunks, threads, smem
+        + [ctypes.c_void_p]             # stream
+    )
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def build_kernel() -> None:
+    """Build and load the CUDA kernel now rather than at its first launch."""
+    _kernel()
+
+
+def takes(x: torch.Tensor, mode: str) -> bool:
+    """True iff ``pool_nd`` sends this pool to K4: a float 2D MAX or AVE
+    pool of a contiguous tensor on the card, with no gradient asked and no
+    trace running."""
+    return (x.device.type == "cuda" and x.dtype in _DTYPE and x.ndim == 4
+            and mode in _MODE and x.is_contiguous()
+            and not (torch.is_grad_enabled() and x.requires_grad)
+            and not torch.compiler.is_compiling())
+
+
+def caffe_pool2d(x: torch.Tensor, kernel, stride, pad, mode: str) -> torch.Tensor:
+    """Caffe ceil-mode MAX (``mode`` "max") or AVE ("ave") pool of a
+    contiguous (N, H, W, C) float tensor on the card; ``kernel``, ``stride``
+    and ``pad`` are (h, w) pairs."""
+    if not takes(x, mode):
+        raise ValueError(
+            f"caffe_pool2d takes a contiguous (N, H, W, C) f32/bf16/f16 tensor on the "
+            f"card with no gradient asked, mode 'max' or 'ave'; got {tuple(x.shape)} "
+            f"{x.dtype} on {x.device}, mode {mode!r}")
+    (kh, kw), (sh, sw), (ph, pw) = (tuple(int(v) for v in a) for a in (kernel, stride, pad))
+    if min(kh, kw, sh, sw) < 1 or min(ph, pw) < 0:
+        raise ValueError(f"caffe_pool2d takes kernel >= 1, stride >= 1 and pad >= 0; "
+                         f"got {kernel}, {stride}, {pad}")
+    n, h, w, c = x.shape
+    p = plan(x.shape, (kh, kw), (sh, sw), (ph, pw), x.element_size(), x.data_ptr() % 16 == 0)
+    out = torch.empty((n, p.ho, p.wo, c), dtype=x.dtype, device=x.device)
+    err = _kernel()(
+        x.data_ptr(), out.data_ptr(), n, h, w, c, p.ho, p.wo, kh, kw, sh, sw, ph, pw,
+        _DTYPE[x.dtype], _MODE[mode], int(p.tiled), p.per, p.tx, p.toh, p.cv, *p.tiles,
+        p.threads, p.smem, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"caffe_pool2d kernel launch failed: CUDA error {err}")
+    COUNTS["k4.launches"] += 1
+    return out

@@ -102,7 +102,11 @@ def _reduce_buckets(grads: list, group, divisor: int) -> list:
         dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
         flat = flat / divisor
         for i, part in zip(idx, flat.split([grads[i].numel() for i in idx])):
-            out[i] = part.view_as(grads[i])
+            # back into the gradient's own tensor, which keeps its memory
+            # layout (a conv weight's is channels-last): the clip's norm then
+            # sums it in the single-device step's order, and one rank's step
+            # is that step bit for bit
+            out[i] = grads[i].copy_(part.view(grads[i].shape))
     return out
 
 

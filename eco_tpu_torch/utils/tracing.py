@@ -13,10 +13,12 @@
   several hundred spans would add to the host's enqueue.
 - ``COUNTS`` counts work where it happens, whether a profiler runs or not:
   ``serve.requests`` and ``serve.videos`` (``UInt8Server`` calls and the
-  videos they scored), ``k1.launches``, ``k2.launches`` and ``k3.launches``
-  (launches of the hand-written kernels of ``ops/preprocess.py``,
-  ``ops/poolfuse.py`` and ``ops/qconv.py``).  Take a difference around the
-  stretch of interest.
+  videos they scored), ``k1.launches``, ``k2.launches``, ``k3.launches``
+  and ``k4.launches`` (launches of the hand-written kernels of
+  ``ops/preprocess.py``, ``ops/poolfuse.py``, ``ops/qconv.py`` and
+  ``ops/poolk.py``), ``pool.route`` (float pools on the card that took
+  ``ops/pool.py``'s padded route instead of K4).  Take a difference around
+  the stretch of interest.
 """
 
 from __future__ import annotations

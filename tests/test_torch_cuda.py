@@ -1,4 +1,4 @@
-"""eco_tpu_torch on a CUDA device: the hand-written kernels (K1, K2, K3)
+"""eco_tpu_torch on a CUDA device: the hand-written kernels (K1, K2, K3, K4)
 against their plain versions, the serving path and a train step on the
 card against the same on the CPU, and the world-1 NCCL data-parallel step
 against the plain one.
@@ -13,11 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import K4_FRAMES, K4_POOLS
 from eco_tpu_torch.apps import RawPreprocessProgram, UInt8Server
 from eco_tpu_torch.data import prefetch_to_device
 from eco_tpu_torch.convert import optimize_for_inference, quantize_for_serving
 from eco_tpu_torch.models import build_eco_lite, get_model
-from eco_tpu_torch.ops import poolfuse, preprocess, qconv
+from eco_tpu_torch.ops import pool, poolfuse, poolk, preprocess, qconv
 from eco_tpu_torch.ops.quant import conv_nd_int8, inner_product_int8, quantize_weight
 from eco_tpu_torch.ops.pool import pool_nd
 from eco_tpu_torch.ops.resize import preprocess_resize_on_device
@@ -337,6 +338,117 @@ def test_pool_route_takes_kernel_only_when_asked_and_never_under_a_gradient(cuda
         poolfuse.fused_maxpool_3x3s2(x.detach().transpose(1, 2))
 
 
+FLOATS = [torch.float32, torch.bfloat16, torch.float16]
+
+
+def _k4_held(x, k, s, p, mode):
+    """``pool_nd`` of ``x`` takes K4 once and no route, and equals the plain
+    route on the card bit for bit."""
+    k4, route = COUNTS["k4.launches"], COUNTS["pool.route"]
+    got = pool.pool_nd(x, kernel=k, stride=s, pad=p, mode=mode)
+    torch.cuda.synchronize()
+    assert COUNTS["k4.launches"] == k4 + 1 and COUNTS["pool.route"] == route
+    want = pool.padded_pool(x, (k, k), (s, s), (p, p), mode)
+    assert got.dtype == x.dtype and got.is_contiguous() and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", FLOATS)
+@pytest.mark.parametrize("name", sorted(K4_POOLS))
+def test_k4_equals_plain_route_at_every_eco_and_caffenet_pool(cuda, name, dtype):
+    """At 32 videos x 16 frames, the batch of the benchmark's cells."""
+    (h, w, c), k, s, p, mode, _, _ = K4_POOLS[name]
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((K4_FRAMES, h, w, c), device=cuda, generator=gen).to(dtype)
+    _k4_held(x, k, s, p, mode)
+
+
+@pytest.mark.parametrize("mode", ["max", "ave"])
+@pytest.mark.parametrize("shape,k,s,p", [
+    ((4, 13, 13, 256), 13, 13, 0), ((4, 9, 11, 16), 2, 2, 1), ((4, 10, 10, 32), 5, 3, 2),
+    ((3, 9, 11, 5), 3, 2, 1), ((3, 8, 12, 12), 3, 1, 1), ((3, 9, 9, 16), 3, 2, 2)])
+def test_k4_generic_and_scalar_paths_equal_plain_route(cuda, shape, k, s, p, mode):
+    """Windows outside the specialised three (the generic tile path); C of
+    5 bf16 or 12 f16 channels, no whole 16-byte vector (the scalar path);
+    a pad over half the window, where the route's AVE sums on the
+    zero-padded tensor rather than in ATen's pool with its own pads."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    base = torch.randn(shape, device=cuda, generator=gen)
+    for dtype in FLOATS:
+        _k4_held(base.to(dtype), k, s, p, mode)
+
+
+@pytest.mark.parametrize("mode", ["max", "ave"])
+def test_k4_scalar_path_on_an_unaligned_view(cuda, mode):
+    base = torch.randn(1 + 2 * 16 * 16 * 8, device=cuda).to(torch.bfloat16)
+    x = base[1:].view(2, 16, 16, 8)  # 2-byte offset: no 16-byte vectors
+    assert x.data_ptr() % 16 != 0
+    assert not poolk.plan(x.shape, (3, 3), (2, 2), (0, 0), 2, aligned=False).tiled
+    _k4_held(x, 3, 2, 0, mode)
+
+
+
+@pytest.mark.parametrize("shape,k,s,p", [((4, 8, 8, 192), 3, 1, 1), ((4, 28, 28, 16), 3, 1, 1),
+                                         ((2, 7, 7, 32), 7, 1, 0), ((2, 11, 9, 8), 3, 2, 1)])
+def test_ave_route_gradient_on_card_matches_cpu(cuda, shape, k, s, p):
+    """Under a gradient (training, where K4 does not run) the AVE route's
+    values and input gradient on the card equal the CPU's to f32 rounding;
+    ATen's CUDA backward of its padded ceil-mode pool did not."""
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randn(shape, generator=gen)
+    out = [pool.caffe_pool_out_dim(n, k, s, p)[0] for n in shape[1:3]]
+    w = torch.randn([shape[0], *out, shape[3]], generator=gen)
+    got = []
+    for dev in ("cpu", cuda):
+        xx = x.to(dev).detach().requires_grad_()
+        y = pool_nd(xx, kernel=k, stride=s, pad=p, mode="ave")
+        (y * w.to(dev)).sum().backward()
+        got.append((y.detach().cpu(), xx.grad.cpu()))
+    torch.testing.assert_close(got[1][0], got[0][0], rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(got[1][1], got[0][1], rtol=1e-6, atol=1e-6)
+
+@pytest.mark.parametrize("k,s,p", [(3, 2, 0), (3, 1, 1)])
+def test_k4_max_propagates_nan_like_plain_route(cuda, k, s, p):
+    x = torch.randn(1, 8, 8, 8, device=cuda)
+    x[0, 4, 4, 2] = float("nan")
+    got = poolk.caffe_pool2d(x, (k, k), (s, s), (p, p), "max")
+    want = pool.padded_pool(x, (k, k), (s, s), (p, p), "max")
+    assert torch.equal(got.isnan(), want.isnan()) and got.isnan().sum() == (4 if s == 2 else 9)
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())
+
+
+def test_k4_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    x = torch.randn(2, 8, 8, 8, device=cuda)
+    bad = [x.transpose(1, 2), x.to(torch.int8), x[None], x.cpu(), x.clone().requires_grad_()]
+    for y in bad:
+        with pytest.raises(ValueError, match="caffe_pool2d takes"):
+            poolk.caffe_pool2d(y, (3, 3), (2, 2), (0, 0), "max")
+    with pytest.raises(ValueError, match="mode"):
+        poolk.caffe_pool2d(x, (3, 3), (2, 2), (0, 0), "stochastic")
+    with pytest.raises(ValueError, match="pad >= 0"):
+        poolk.caffe_pool2d(x, (3, 3), (2, 2), (-1, 0), "max")
+
+
+@pytest.mark.parametrize("model,fc,pools", [("eco_lite_kinetics", "fc8", 4),
+                                            ("eco_full_kinetics", "fc8N", 13)])
+def test_bf16_serving_request_takes_k4_at_every_pool(cuda, model, fc, pools):
+    graph = get_model(model, batch=2, num_segments=4, crop_size=224)
+    params, state = Program(graph, device="cpu").init(torch.Generator().manual_seed(0),
+                                                      {"data": graph.inputs["data"]})
+    g, p, s = optimize_for_inference(graph, params, state)
+    p = {ln: {k: v.to(cuda) for k, v in d.items()} for ln, d in p.items()}
+    s = {ln: {k: v.to(cuda) for k, v in d.items()} for ln, d in s.items()}
+    server = UInt8Server(Program(g, compute_dtype=torch.bfloat16, device=cuda), p, s,
+                         crop=224, output=fc)
+    frames, h_off, w_off, mirror = _batch(cuda, 2, 4, 240, 256, 224)
+    k4, route = COUNTS["k4.launches"], COUNTS["pool.route"]
+    with torch.no_grad():  # as the benchmark's server
+        probs = server(frames, h_off=h_off, w_off=w_off, mirror=mirror)
+    torch.cuda.synchronize()
+    assert torch.isfinite(probs.float()).all()
+    assert COUNTS["k4.launches"] - k4 == pools and COUNTS["pool.route"] == route
+
+
 def test_train_step_on_card_matches_cpu(cuda):
     """One f32 Nesterov step of full-width ECO-Lite at crop 64, S=4, N=2,
     dropout 0, through the raw uint8 plane, TF32 off, card against CPU.
@@ -362,8 +474,12 @@ def test_train_step_on_card_matches_cpu(cuda):
         p = {ln: {k: v.to(dev) for k, v in d.items()} for ln, d in params.items()}
         s = {ln: {k: v.to(dev) for k, v in d.items()} for ln, d in state.items()}
         raw = RawPreprocessProgram(Program(graph, train=True, device=dev), crop=64)
+        k4, route = COUNTS["k4.launches"], COUNTS["pool.route"]
         ts, metrics = make_train_step(raw, cfg)(init_train_state(p, s), batch)
         assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
+        # K4 has no backward: the four pools of the train step keep the route
+        assert COUNTS["k4.launches"] == k4
+        assert COUNTS["pool.route"] - route == (4 if dev == cuda else 0)
         updates.append(torch.cat([(ts.params[ln][k] - p[ln][k]).flatten().cpu()
                                   for ln in sorted(p) for k in sorted(p[ln])]))
     rel = ((updates[1] - updates[0]).norm() / updates[0].norm()).item()

@@ -6,13 +6,18 @@ term (rtol/atol 1e-5); max pools, layout moves, concat and relu select
 existing values and must agree exactly.
 """
 
+import math
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
 
+from chip_smoke import K4_FRAMES, K4_POOLS
 from eco_tpu import ops as jops
 from eco_tpu_torch import ops
+from eco_tpu_torch.utils.shapes import caffe_pool_out_dim
+from eco_tpu_torch.utils.tracing import COUNTS
 
 RTOL = ATOL = 1e-5
 
@@ -105,6 +110,14 @@ POOL_CASES = {
     "ave_clip_last_window": dict(x=(2, 5, 5, 3), k=2, s=2, p=1, mode="ave"),
     "ave_3d_global": dict(x=(2, 4, 7, 7, 3), k=None, s=1, p=0, mode="ave", glob=True),
     "max_int8": dict(x=(2, 9, 9, 3), k=3, s=2, p=1, mode="max", dtype="int8"),
+    # ECO's and CaffeNet's pool geometries (H and W as in the graphs; batch
+    # and channels cut); 112 -> 56 is max_112_to_56_ceil
+    "eco_max_56_to_28": dict(x=(2, 56, 56, 8), k=3, s=2, p=0, mode="max"),
+    "eco_ave_28_s1_p1": dict(x=(2, 28, 28, 8), k=3, s=1, p=1, mode="ave"),
+    "eco_max_14_to_7": dict(x=(2, 14, 14, 8), k=3, s=2, p=0, mode="max"),
+    "eco_max_7_s1_p1": dict(x=(2, 7, 7, 8), k=3, s=1, p=1, mode="max"),
+    "eco_ave_7_k7": dict(x=(2, 7, 7, 8), k=7, s=1, p=0, mode="ave"),
+    "caffenet_max_55_to_27": dict(x=(2, 55, 55, 4), k=3, s=2, p=0, mode="max"),
 }
 
 
@@ -126,6 +139,149 @@ def test_pool_nd_matches_jax(case):
         np.testing.assert_array_equal(got.numpy(), want)
     else:
         _close(got, want)
+
+
+def _row_major_ave(x, k, s, p):
+    """Caffe AVE pool of (N, H, W, C) written out: each window's cells, the
+    padding's as +0.0, added one f32 add at a time in row-major order from
+    +0.0, then divided by Caffe's divisor (the window clipped to H + p
+    before the image)."""
+    n, h, w, c = x.shape
+    ho, wo = (caffe_pool_out_dim(d, k, s, p)[0] for d in (h, w))
+    out = np.empty((n, ho, wo, c), np.float32)
+    for i in range(ho):
+        for j in range(wo):
+            r0, q0 = i * s - p, j * s - p
+            acc = np.zeros((n, c), np.float32)
+            for r in range(r0, r0 + k):
+                for q in range(q0, q0 + k):
+                    if 0 <= r < h and 0 <= q < w:
+                        acc = np.add(acc, x[:, r, q], dtype=np.float32)
+                    else:
+                        acc = np.add(acc, np.float32(0.0), dtype=np.float32)
+            div = (np.float32(min(r0 + k, h + p) - r0)
+                   * np.float32(min(q0 + k, w + p) - q0))
+            out[:, i, j] = acc / div
+    return out
+
+
+@pytest.mark.parametrize("grad", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape,k,s,p", [
+    ((2, 28, 28, 8), 3, 1, 1), ((2, 7, 7, 8), 7, 1, 0), ((2, 11, 9, 3), 3, 2, 1),
+    ((2, 5, 5, 3), 2, 2, 1), ((2, 9, 9, 3), 3, 2, 2)])
+def test_ave_route_is_the_row_major_f32_sum_bit_for_bit(dtype, shape, k, s, p, grad):
+    """K4's sum order: the plain AVE route gives the written-out row-major
+    sum's bits, so the kernel can be held to it with torch.equal; under a
+    gradient (training, where K4 does not run) the route sums alike.  The
+    values span six orders of magnitude, so another order of adds would
+    round otherwise.  A pad over half the window, which ATen's pool does not
+    take, sums on the zero-padded tensor instead."""
+    rng = _rng(5)
+    scale = rng.choice(np.float32([1e-3, 1.0, 1e3]), shape)
+    x = torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dtype)
+    want = torch.from_numpy(_row_major_ave(x.float().numpy(), k, s, p)).to(dtype)
+    with torch.enable_grad():
+        got = ops.pool_nd(x.requires_grad_(grad), kernel=k, stride=s, pad=p, mode="ave")
+    assert got.requires_grad == grad
+    got = got.detach()
+    bits = {torch.float32: torch.int32}.get(dtype, torch.int16)
+    assert got.dtype == dtype and torch.equal(got.view(bits), want.view(bits))
+
+
+def _fake_card_tensor(shape, dtype=torch.bfloat16):
+    return torch.empty(shape, dtype=dtype, device="cuda")
+
+
+POOL_ROUTES = {
+    # case: (shape, dtype, mode, how, takes K4)
+    "card_max": ((2, 9, 9, 16), torch.bfloat16, "max", None, True),
+    "card_ave_f32": ((2, 9, 9, 16), torch.float32, "ave", None, True),
+    "card_f16_odd_channels": ((2, 9, 9, 5), torch.float16, "max", None, True),
+    "under_a_gradient": ((2, 9, 9, 16), torch.bfloat16, "max", "grad", False),
+    "int8": ((2, 9, 9, 16), torch.int8, "max", None, False),
+    "3d": ((2, 4, 9, 9, 16), torch.bfloat16, "max", None, False),
+    "while_compiling": ((2, 9, 9, 16), torch.bfloat16, "max", "compiling", False),
+    "not_contiguous": ((2, 9, 9, 16), torch.bfloat16, "max", "transposed", False),
+    "cpu": ((2, 9, 9, 16), torch.bfloat16, "max", "cpu", False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(POOL_ROUTES))
+def test_pool_nd_routes_float_2d_card_pools_to_k4(case, monkeypatch):
+    """On fake card tensors: a float 2D pool of a contiguous tensor on the
+    card with no gradient asked goes to K4; a gradient, an integer or 3D
+    pool, a running trace, a strided view and the CPU keep the route, and
+    the float ones on the card count in COUNTS["pool.route"]."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from eco_tpu_torch.ops import pool, poolk
+
+    shape, dtype, mode, how, to_k4 = POOL_ROUTES[case]
+    calls = []
+
+    def recorder(route):
+        def call(x, kernel, stride, pad, mode):
+            calls.append((route, tuple(kernel), tuple(stride), tuple(pad), mode))
+            return x.new_empty(x.shape)
+        return call
+
+    monkeypatch.setattr(poolk, "caffe_pool2d", recorder("k4"))
+    monkeypatch.setattr(pool, "padded_pool", recorder("route"))
+    if how == "compiling":
+        monkeypatch.setattr(torch.compiler, "is_compiling", lambda: True)
+    before = COUNTS["pool.route"]
+    with torch.enable_grad(), FakeTensorMode():
+        x = (torch.empty(shape, dtype=dtype) if how == "cpu"
+             else _fake_card_tensor(shape, dtype))
+        if how == "grad":
+            x.requires_grad_()
+        if how == "transposed":
+            x = x.transpose(1, 2)
+        assert poolk.takes(x, mode) == to_k4
+        pool.pool_nd(x, kernel=3, stride=2, pad=1, mode=mode)
+    nsp = len(shape) - 2
+    assert calls == [("k4" if to_k4 else "route", (3,) * nsp, (2,) * nsp, (1,) * nsp, mode)]
+    on_card_route = not to_k4 and how != "cpu" and dtype.is_floating_point
+    assert COUNTS["pool.route"] == before + on_card_route
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("name", sorted(K4_POOLS))
+def test_k4_plan_fills_the_card_within_its_limits(name, itemsize):
+    """K4's tile at every ECO and CaffeNet pool at 32 videos x 16 frames: the
+    tile path, within the kernel's thread and shared-memory limits, with the
+    output covered and two blocks or more for each of the card's 132 SMs."""
+    from eco_tpu_torch.ops import poolk
+
+    (h, w, c), k, s, p, _, _, _ = K4_POOLS[name]
+    n = K4_FRAMES
+    plan = poolk.plan((n, h, w, c), (k, k), (s, s), (p, p), itemsize, aligned=True)
+    ho, wo = (caffe_pool_out_dim(d, k, s, p)[0] for d in (h, w))
+    groups = c * itemsize // 16
+    assert (plan.ho, plan.wo) == (ho, wo)
+    assert plan.tiled and plan.per == {(3, 2): 2, (3, 1): 4}.get((k, s), 1)
+    assert plan.threads == plan.cv * plan.tx * plan.toh <= poolk.THREADS
+    assert plan.smem == (((plan.toh - 1) * s + k) * ((plan.tx * plan.per - 1) * s + k)
+                         * plan.cv * 16) <= poolk.SMEM_BYTES
+    assert plan.tiles == (-(-ho // plan.toh), -(-wo // (plan.tx * plan.per)),
+                          -(-groups // plan.cv))
+    assert n * math.prod(plan.tiles) >= poolk.MIN_BLOCKS
+
+
+@pytest.mark.parametrize("shape,itemsize,aligned", [
+    ((2, 8, 12, 5), 2, True), ((2, 8, 12, 6), 4, True), ((2, 16, 16, 8), 2, False)])
+def test_k4_plan_takes_the_scalar_path_without_whole_aligned_vectors(shape, itemsize, aligned):
+    from eco_tpu_torch.ops import poolk
+
+    assert not poolk.plan(shape, (3, 3), (2, 2), (0, 0), itemsize, aligned).tiled
+
+
+def test_k4_wrapper_rejects_what_the_kernel_does_not_take():
+    from eco_tpu_torch.ops import poolk
+
+    with pytest.raises(ValueError, match="on the card"):
+        poolk.caffe_pool2d(torch.zeros(2, 8, 8, 8), (3, 3), (2, 2), (0, 0), "max")
 
 
 @pytest.mark.parametrize("shape", [(2, 7, 7, 8), (2, 4, 7, 7, 8)])
