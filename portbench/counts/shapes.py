@@ -1,7 +1,8 @@
 """Operations and bytes from shapes alone, never from what the program runs.
 
 ``forward_flops``: twice the multiply-adds of every conv and fc of one
-video's forward pass, the layers walked as the reference defines them.  A
+video's forward pass, the layers walked as ``reference/eco.py`` defines
+them (ECO's nets; another configuration's counts module brings its own).  A
 training step's operations are three times those (forward, the gradient
 of the data, the gradient of the weights).
 

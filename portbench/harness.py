@@ -27,10 +27,15 @@ PEAKS = json.loads((Path(__file__).resolve().parent / "peaks.json").read_text())
 
 class Readings:
     """What a per-layer reader reads: the profile of the traced stretch, the
-    host-timed stretch before it, the cell's counts and the card's peaks."""
+    program's spans in it (``profile.spans``, or none without a profile) and
+    the change of its counters over it (``COUNTS`` of
+    ``eco_tpu_torch/utils/tracing.py``), the host-timed stretch before it,
+    the cell's counts and the card's peaks."""
 
-    def __init__(self, cell, profile, host, traced):
+    def __init__(self, cell, profile, host, traced, counts):
         self.profile, self.host, self.traced = profile, host, traced
+        self.spans = profile.spans if profile is not None else {}
+        self.counts = counts
         self.peaks = PEAKS
         cfg = cell.config
         self.flops_per_video = cell.counts.forward_flops(cell.counts.net(cfg), cfg)
@@ -69,15 +74,19 @@ def _serving(cell, seed, seconds, tracing, device, notes):
     serve.warm_up(server, reqs, frames, device)
     ready = time.perf_counter()
 
-    log, profiles = serve.Log(), []
+    log, profiles, counts = serve.Log(), [], {}
     host_s = seconds - (min(TRACE_SECONDS, seconds / 2) if tracing else 0.0)
     t0 = time.perf_counter()
     i = serve.closed_loop(server, reqs, frames, log, 0, t0 + host_s)
     _sync(device)
     t_host, n_host = time.perf_counter(), len(log.served)
     if tracing:
+        from eco_tpu_torch.utils.tracing import COUNTS
+
+        before = COUNTS.copy()
         with trace.profiled(device, profiles):
             serve.closed_loop(server, reqs, frames, log, i, t0 + seconds)
+        counts = dict(COUNTS - before)
     t_end = time.perf_counter()
     device_info = _device(device, 1)
 
@@ -102,7 +111,8 @@ def _serving(cell, seed, seconds, tracing, device, notes):
                  + f"; reference logits std {float(torch.cat(ref).std()):.4g}")
     failed = sum(1 for r, *_ in served if log.outputs[r.index].shape[0] != r.videos)
     return dict(ready=ready, e2e=e2e, host=host, traced=traced, profiles=profiles,
-                device=device_info, numbers=numbers, attempted=len(served), failed=failed)
+                counts=counts, device=device_info, numbers=numbers, attempted=len(served),
+                failed=failed)
 
 
 def run(cell_name: str, seed: int, seconds: float, tracing: bool, *, device="cuda",
@@ -129,7 +139,7 @@ def run(cell_name: str, seed: int, seconds: float, tracing: bool, *, device="cud
     result = {"correct": False, "attempted": out["attempted"], "failed": out["failed"]}
     if tracing:
         prof = out["profiles"][0] if out["profiles"] else None
-        readings = Readings(cell, prof, out["host"], out["traced"])
+        readings = Readings(cell, prof, out["host"], out["traced"], out["counts"])
         metrics = {}
         for m in cell.per_layer:
             value = cell.readers[m["name"]].read(readings)

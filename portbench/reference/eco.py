@@ -12,6 +12,20 @@ A net is a list of layers (``layers``), which the forward pass runs and the
 counts (``portbench/counts``) walk for shapes.  Weights are
 ``{layer: {"w", "b"}}`` for convs and fcs and ``{layer: {"gamma", "beta"}}``
 for BN, with BN running statistics ``{layer: {"mean", "var"}}``.
+``param_specs``, ``clips`` and ``forward`` are the reference interface
+(``portbench/reference/__init__.py``) of both ECO configurations.
+
+The weights' draws, chosen so that activations stay near unit scale
+through every layer in inference as in training:
+- conv and fc weights Laplace with scale b = sqrt(1 / fan_in) (variance
+  2 / fan_in, which ReLU halves back), divided by 75 for the conv that
+  reads the clips (uint8 pixels minus the mean have an RMS of some 10 to
+  75): trained conv weights peak at zero with heavy tails, and a uniform
+  draw, which has no tails, would make every per-channel int8 scale look
+  better than it does on a trained net;
+- biases U(-0.1, 0.1); BN scale U(0.8, 1.2), shift U(-0.2, 0.2);
+- BN running mean U(-0.2, 0.2), running variance U(0.8, 1.25), so that
+  folding them into the convs is not the identity.
 """
 
 from __future__ import annotations
@@ -21,6 +35,8 @@ from dataclasses import dataclass, field
 
 import torch
 import torch.nn.functional as F
+
+from portbench.reference import ParamSpec
 
 # Inception blocks (ECO_Lite.prototxt:182-1330, ECO_Full.prototxt:1426-4800):
 # (1x1, 3x3 reduce, 3x3, double reduce, double 1, double 2, pool proj, pool).
@@ -39,6 +55,9 @@ INCEPTION = {
 }
 
 BN_EPS = 1e-5
+PIXEL_RMS = 75.0
+UNIFORM = {"b": (-0.1, 0.1), "gamma": (0.8, 1.2), "beta": (-0.2, 0.2),
+           "mean": (-0.2, 0.2), "var": (0.8, 1.25)}
 
 
 @dataclass
@@ -182,18 +201,14 @@ def shapes(net: list[Layer], videos: int, segments: int, crop: int) -> dict:
     return shp
 
 
-@dataclass(frozen=True)
-class ParamSpec:
-    layer: str
-    name: str
-    shape: tuple
-    fan_in: int
-    takes_data: bool = False  # the layer reads the raw clips
+def _uniform(layer, name, shape):
+    return ParamSpec(layer, name, shape, *UNIFORM[name])
 
 
-def param_specs(net: list[Layer], segments: int, crop: int) -> tuple[list, list]:
-    """(params, BN statistics) as ParamSpecs, in layer order."""
-    shp = shapes(net, 1, segments, crop)
+def param_specs(net: list[Layer], cfg: dict) -> tuple[list, list]:
+    """(params, BN statistics) as ParamSpecs, in layer order, each with its
+    draw (the module's note)."""
+    shp = shapes(net, 1, cfg["num_segments"], cfg["crop_size"])
     params, stats = [], []
     for l in net:
         x = shp[l.bottoms[0]]
@@ -201,13 +216,13 @@ def param_specs(net: list[Layer], segments: int, crop: int) -> tuple[list, list]
             cin = x[1] if l.op == "conv" else math.prod(x[1:])
             k = (l.attrs["k"],) * l.attrs["dim"] if l.op == "conv" else ()
             fan = cin * math.prod(k)
-            data = l.bottoms[0] == "data"
-            params.append(ParamSpec(l.name, "w", (l.attrs["cout"], cin) + k, fan, data))
-            params.append(ParamSpec(l.name, "b", (l.attrs["cout"],), fan, data))
+            scale = math.sqrt(1.0 / fan) / (PIXEL_RMS if l.bottoms[0] == "data" else 1.0)
+            params.append(ParamSpec(l.name, "w", (l.attrs["cout"], cin) + k, laplace=scale))
+            params.append(_uniform(l.name, "b", (l.attrs["cout"],)))
         elif l.op == "bn":
             c = x[1]
-            params += [ParamSpec(l.name, n, (c,), c) for n in ("gamma", "beta")]
-            stats += [ParamSpec(l.name, n, (c,), c) for n in ("mean", "var")]
+            params += [_uniform(l.name, n, (c,)) for n in ("gamma", "beta")]
+            stats += [_uniform(l.name, n, (c,)) for n in ("mean", "var")]
     return params, stats
 
 
@@ -224,6 +239,12 @@ def clips_from_frames(frames_u8, h_off, w_off, mirror, *, crop: int, mean) -> to
         v = frames_u8[i, :, y0:y0 + crop, x0:x0 + crop, :].float() - m
         out[i] = v.flip(2) if bool(mirror[i]) else v
     return out
+
+
+def clips(cfg: dict, frames_u8, h_off, w_off, mirror) -> torch.Tensor:
+    """The configuration's clips: its crop, minus its BGR mean."""
+    return clips_from_frames(frames_u8, h_off, w_off, mirror, crop=cfg["crop_size"],
+                             mean=cfg["mean_bgr"])
 
 
 def _bn(x, p, st):

@@ -1,6 +1,7 @@
 """ECO-Full, Kinetics-400 (``models_ECO_Full/kinetics/ECO_Full.prototxt``)."""
 
 from portbench.reference import eco
+from portbench.reference.eco import clips, forward, param_specs  # noqa: F401
 
 
 def net(cfg: dict) -> list:

@@ -15,13 +15,14 @@ import torch
 from torch.profiler import record_function
 
 from portbench import load
-from portbench.reference import eco
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def build(cell, params, state, device):
-    """The server of the cell's configuration on the given weights."""
+    """The server of the cell's configuration on the given weights: the zoo's
+    builder of ``model`` gets the request's ``batch`` and, for each entry of
+    ``model_args``, the value of the configuration key it names."""
     from eco_tpu_torch.apps.serving import UInt8Server
     from eco_tpu_torch.convert import optimize_for_inference
     from eco_tpu_torch.models.zoo import get_model
@@ -29,7 +30,7 @@ def build(cell, params, state, device):
 
     cfg = cell.config
     graph = get_model(cfg["model"], batch=int(cell.traffic["videos"]),
-                      num_segments=cfg["num_segments"], crop_size=cfg["crop_size"])
+                      **{arg: cfg[key] for arg, key in cfg["model_args"].items()})
     g, p, s = optimize_for_inference(graph, params, state)
     return UInt8Server(Program(g, compute_dtype=DTYPES[cfg["precision"]], device=device), p, s,
                        crop=cfg["crop_size"], mean=tuple(cfg["mean_bgr"]))
@@ -84,8 +85,8 @@ def sample(log: Log, traffic: dict, seed: int) -> list:
 def reference_logits(cell, params, state, reqs, frames, device):
     """The reference's logits of every video of ``reqs``, float32, TF32 off,
     a block of at most 8 videos at a time."""
-    cfg = cell.config
-    net = cell.reference.net(cfg)
+    cfg, ref = cell.config, cell.reference
+    net = ref.net(cfg)
     flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     out = []
@@ -96,10 +97,8 @@ def reference_logits(cell, params, state, reqs, frames, device):
                 for lo in range(0, r.videos, 8):
                     hi = min(lo + 8, r.videos)
                     f = frames[r.pool][lo:hi].to(device)
-                    clips = eco.clips_from_frames(f, r.h_off[lo:hi], r.w_off[lo:hi],
-                                                  r.mirror[lo:hi], crop=cfg["crop_size"],
-                                                  mean=cfg["mean_bgr"])
-                    rows.append(eco.forward(net, params, state, clips).double().cpu())
+                    clips = ref.clips(cfg, f, r.h_off[lo:hi], r.w_off[lo:hi], r.mirror[lo:hi])
+                    rows.append(ref.forward(net, params, state, clips).double().cpu())
                 out.append(torch.cat(rows))
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags

@@ -6,6 +6,7 @@ rounding: serving through ``UInt8Server`` on the folded and merged graph.
 """
 
 import copy
+import math
 
 import pytest
 import torch
@@ -43,11 +44,39 @@ def test_shapes_of_the_params_match_the_port(variant, fc):
     graph = get_model(f"eco_{variant}_kinetics", batch=1, num_segments=4, crop_size=224)
     params, state = Program(graph, device="cpu").init(
         torch.Generator().manual_seed(0), {"data": graph.inputs["data"]})
-    mine, stats = eco.param_specs(eco.layers(variant, 400, fc, 0.5, 4), 4, 224)
+    mine, stats = eco.param_specs(eco.layers(variant, 400, fc, 0.5, 4),
+                                  {"num_segments": 4, "crop_size": 224})
     assert {(s.layer, s.name): s.shape for s in mine} == {
         (ln, pn): tuple(t.shape) for ln, d in params.items() for pn, t in d.items()}
     assert {(s.layer, s.name): s.shape for s in stats} == {
         (ln, pn): tuple(t.shape) for ln, d in state.items() for pn, t in d.items()}
+
+
+# the draws of ECO's weights as the benchmark made them before each
+# configuration's reference gave its own: a Laplace scale for every weight,
+# a uniform range by name for the rest
+_PARENT_RANGES = {"b": (-0.1, 0.1), "gamma": (0.8, 1.2), "beta": (-0.2, 0.2),
+                  "mean": (-0.2, 0.2), "var": (0.8, 1.25)}
+
+
+def _parent_draw(s, reads_clips):
+    if s.name == "w":
+        fan_in = math.prod(s.shape[1:])
+        return 0.0, 0.0, math.sqrt(1.0 / fan_in) / (75.0 if s.layer in reads_clips else 1.0)
+    return _PARENT_RANGES[s.name] + (0.0,)
+
+
+@pytest.mark.parametrize("name", ["lite_batch32", "full_batch32"])
+def test_eco_draws_are_the_earlier_ones(name):
+    """ECO's specs give each weight the draw it had, in the same order, so
+    that a seed gives the same weights as before, bit for bit."""
+    cell = spec.cell(name)
+    net = cell.reference.net(cell.config)
+    params, stats = cell.reference.param_specs(net, cell.config)
+    reads_clips = {l.name for l in net if l.bottoms[0] == "data"}
+    assert reads_clips == {"conv1_7x7_s2"} and params[0].layer == "conv1_7x7_s2"
+    for s in params + stats:
+        assert (s.low, s.high, s.laplace) == _parent_draw(s, reads_clips), s
 
 
 def _float32_agree(numbers, lines):

@@ -1,11 +1,15 @@
 """What a traced stretch of the window did on the device, from ``torch.profiler``.
 
 The profiler records host operations (with the benchmark's own spans,
-``record_function``, ``SPANS``) and the device's kernels, copies and
-fills.  This module reduces one profile to a ``Profile``: the device's busy
-time (the union of its activity intervals, also without some of them),
-time by kernel name, host-to-device copy time, and the idle gaps, each
-labelled by the innermost host operation running at its middle.
+``record_function``, ``SPANS``, and the program's, ``eco.*``) and the
+device's kernels, copies and fills.  This module reduces one profile to a
+``Profile``: the device's busy time (the union of its activity intervals,
+also without some of them), time by kernel name, host-to-device copy time,
+the idle gaps, each labelled by the innermost host operation running at its
+middle, and the device work each of the program's spans launched.  The
+reduction is the benchmark's own, so that no change to the program can move
+a reading; ``portbench/tests/test_portbench_spans.py`` holds it to the program's
+``runtime/profiler.py:span_table``.
 """
 
 from __future__ import annotations
@@ -26,6 +30,9 @@ class Profile:
     htod_s: float = 0.0
     idle_by_host_op: dict = field(default_factory=dict)  # label -> seconds
     device_ops: list = field(default_factory=list)  # (start us, end us, name)
+    # program span -> calls, device_ms and launches of the device work
+    # launched inside it, self_device_ms of that outside its inner spans
+    spans: dict = field(default_factory=dict)
 
     def kernel_time(self, part: str) -> tuple[float, int]:
         """Seconds and launches of the kernels whose name holds ``part``."""
@@ -48,6 +55,8 @@ class Profile:
 # the benchmark's spans around calls into the program's layers; the profiler
 # also draws each on the device's timeline, where it is no device work
 SPANS = ("serve.call", "serve.copy_out")
+# the prefix of the program's spans (``eco_tpu_torch/utils/tracing.py``)
+PROGRAM_SPANS = "eco."
 
 
 def _device_events(events):
@@ -83,12 +92,46 @@ def _label(host_sorted, starts, t, scan=4000):
     return "host (no operation)"
 
 
+def _innermost_span(e):
+    while e is not None and not e.name.startswith(PROGRAM_SPANS):
+        e = e.cpu_parent
+    return e
+
+
+def span_table(events) -> dict:
+    """The program's spans by name: ``calls``; ``device_ms`` and
+    ``launches`` of the kernels, copies and fills launched inside the span,
+    by the profiler's link of each device op to the host op that launched
+    it; ``self_device_ms`` of those with no inner span between.  Spans nest,
+    as those of one thread do, so an inner span's work counts in each
+    outer span's total and in none's own."""
+    cuda = torch.autograd.DeviceType.CUDA
+    table = collections.defaultdict(lambda: dict.fromkeys(
+        ("calls", "device_ms", "self_device_ms", "launches"), 0))
+    for e in events:
+        if e.device_type == cuda:
+            continue
+        if e.name.startswith(PROGRAM_SPANS):
+            table[e.name]["calls"] += 1
+        kernels = getattr(e, "kernels", ())
+        owner = _innermost_span(e) if kernels else None
+        if owner is None:
+            continue
+        ms = sum(k.duration for k in kernels) * 1e-3
+        table[owner.name]["self_device_ms"] += ms
+        while owner is not None:
+            table[owner.name]["device_ms"] += ms
+            table[owner.name]["launches"] += len(kernels)
+            owner = _innermost_span(owner.cpu_parent)
+    return {k: dict(v) for k, v in table.items()}
+
+
 def reduce(events, window_s: float) -> Profile:
     """A ``Profile`` of the profiler's events (times in microseconds); its
     window is the events' span, or ``window_s`` (the host's) without device
     events."""
     dev, host = _device_events(events)
-    prof = Profile(window_s=window_s)
+    prof = Profile(window_s=window_s, spans=span_table(events))
     if not dev:
         return prof
     kernels = collections.defaultdict(lambda: [0.0, 0])
