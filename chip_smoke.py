@@ -64,7 +64,15 @@ Phases (every failure raises; the exit code is then non-zero):
 10. Full-width ECO-Full Kinetics (``fc8N``) served as in phase 3, with the
     same checks (K4 13 times a request), then again without and with
     ``ECO_PALLAS_POOL=1`` (K2 four times a request: pool1, pool2,
-    inception_3c_pool and inception_4e_pool; K4 the other nine).
+    inception_3c_pool and inception_4e_pool; K4 the other nine).  Then I3D:
+    K1 at its serving shape (8, 64, 256, 340, 3) with mean 127.5, random
+    in-range offsets and mirrors, device and host offsets, equal to its plain
+    version in bf16, f32 and int8; and full-width I3D-RGB Kinetics (64
+    frames, 224 crop, ``Conv3d_0c_1x1``) at batch 8, optimized for inference,
+    served by the bf16 ``UInt8Server`` with mean 127.5: a warm-up request
+    and three timed, K1 once a request, K2, K3 and K4 never, every one of
+    its 14 3D pools on the padded route (counted by path in the
+    ``kernels`` line), the probabilities and logits checked as in phase 3.
 11. int8 serving of ECO-Lite and of ECO-Full: ``quantize_for_serving`` of the
     optimized graph, calibrated on two batches of K1's f32 clips, served in
     bf16 by ``UInt8Server(int8_input=True)`` (K1 emits int8 into conv1): K1
@@ -295,6 +303,11 @@ K4_PER_REQUEST = {model: sum(v[col] for v in K4_POOLS.values())
                   for model, col in (("eco_lite_kinetics", 5), ("eco_full_kinetics", 6))}
 TRAIN_STEPS = 10
 NUM_CLASSES = 400
+# I3D-RGB as the benchmark's i3d_batch8 cell serves it: BATCH clips of 64
+# frames, K1 with mean 127.5 (the input transform folded into the stem); a
+# warm-up request and three timed
+I3D_MODEL, I3D_FC, I3D_FRAMES, I3D_REQUESTS = "i3d_rgb_kinetics", "Conv3d_0c_1x1", 64, 4
+I3D_MEAN = (127.5, 127.5, 127.5)
 # examples/train_synthetic.py's solver
 SOLVER = dict(base_lr=0.005, lr_policy="fixed", momentum=0.9, weight_decay=5e-4,
               clip_gradients=40.0, iter_size=1, solver_type="nesterov")
@@ -636,14 +649,14 @@ def check_kernel(dev, card: str, baseline=None) -> dict:
     return rec
 
 
-def _requests(count: int):
+def _requests(count: int, segments: int = SEGMENTS):
     """uint8 frames in pinned host memory, as a decoder would hand them over;
     the first request is center-cropped, the others get random offsets and
     mirrors."""
     gen = torch.Generator().manual_seed(SEED + 1)
     reqs = []
     for i in range(count):
-        frames = torch.randint(0, 256, (BATCH, SEGMENTS, HEIGHT, WIDTH, 3),
+        frames = torch.randint(0, 256, (BATCH, segments, HEIGHT, WIDTH, 3),
                                dtype=torch.uint8, generator=gen).pin_memory()
         aug = {}
         if i > 0:
@@ -698,16 +711,16 @@ def _to(tree, dev):
     return {ln: {k: v.to(dev) for k, v in d.items()} for ln, d in tree.items()}
 
 
-def _f32_logits_card_and_cpu(dev, graph, params, state, request, fc: str):
+def _f32_logits_card_and_cpu(dev, graph, params, state, request, fc: str, mean=MEAN):
     """The f32 server (TF32 off) of ``graph`` on the card, and on the CPU for
     two of the videos; returns both logits."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     frames, aug = request
     card = UInt8Server(Program(graph, compute_dtype=torch.float32, device=dev), params, state,
-                       crop=CROP, mean=MEAN, output=fc)(frames, **aug)
+                       crop=CROP, mean=mean, output=fc)(frames, **aug)
     cpu = UInt8Server(Program(graph, compute_dtype=torch.float32, device="cpu"), _to(params, "cpu"),
-                      _to(state, "cpu"), crop=CROP, mean=MEAN, output=fc)(
+                      _to(state, "cpu"), crop=CROP, mean=mean, output=fc)(
         frames[:2], **{k: v[:2] for k, v in aug.items()})
     return card, cpu
 
@@ -782,7 +795,8 @@ def _pallas_pool(on: bool):
 
 
 def _reset_counts():
-    for k in ("k1.launches", "k2.launches", "k3.launches", "k4.launches", "pool.route"):
+    for k in ("k1.launches", "k2.launches", "k3.launches", "k4.launches", "pool.route",
+              "pool.bytes"):
         COUNTS[k] = 0
 
 
@@ -797,6 +811,89 @@ def _pool_counts():
     route, since ``_reset_counts``."""
     torch.cuda.synchronize()
     return COUNTS["k4.launches"], COUNTS["pool.route"]
+
+
+def check_k1_i3d(dev) -> dict:
+    """K1 at I3D's serving shape, (BATCH, 64, 256, 340, 3) -> 224 with mean
+    127.5, random in-range offsets and mirrors, against its plain version in
+    bf16, f32 and int8, from device and host offsets (``torch.equal``)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 64)
+    frames = torch.randint(0, 256, (BATCH, I3D_FRAMES, HEIGHT, WIDTH, 3), dtype=torch.uint8,
+                           device=dev, generator=gen)
+    h_off = torch.randint(0, HEIGHT - CROP + 1, (BATCH,), device=dev, generator=gen)
+    w_off = torch.randint(0, WIDTH - CROP + 1, (BATCH,), device=dev, generator=gen)
+    mirror = torch.randint(0, 2, (BATCH,), device=dev, generator=gen).bool()
+    host = (h_off.cpu(), w_off.cpu(), mirror.cpu())
+    for name, (dtype, act_scale) in K1_TYPES.items():
+        kw = dict(crop=CROP, mean=I3D_MEAN, out_dtype=dtype, act_scale=act_scale)
+        want = preprocess.crop_normalize_reference(frames, h_off, w_off, mirror, **kw)
+        for where, offsets in (("device", (h_off, w_off, mirror)), ("host", host)):
+            got = preprocess.preprocess_on_device(frames, *offsets, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"K1 at I3D's shape disagrees with its plain version in "
+                                     f"{name}, {where} offsets")
+        print(f"K1 {name:4s} at ({BATCH}, {I3D_FRAMES}, {HEIGHT}, {WIDTH}, 3) -> {CROP}, mean "
+              f"{I3D_MEAN[0]}: equal to its plain version (device and host offsets)")
+    return {"i3d_shape_equal": True}
+
+
+def serve_i3d(dev, card: str) -> dict:
+    """Full-width I3D-RGB (400 classes, 64 frames, 224 crop) at batch
+    ``BATCH`` with seeded random weights, optimized for inference (the input
+    transform and every BN folded), served by the bf16 ``UInt8Server`` with
+    mean 127.5.  K1 must launch once a request, K2, K3 and K4 never, and every
+    pool take the padded route.  The logits are held to an f32 run of the
+    same server (TF32 off), and that run to the f32 server on the CPU for
+    two of the clips.  Returns the launch and route counts."""
+    t0 = time.perf_counter()
+    graph = get_model(I3D_MODEL, batch=BATCH, num_frames=I3D_FRAMES, crop_size=CROP)
+    params, state = Program(graph, device=dev).init(
+        torch.Generator().manual_seed(SEED), {"data": graph.inputs["data"]})
+    g_opt, p_opt, s_opt = optimize_for_inference(graph, params, state)
+    server = UInt8Server(Program(g_opt, device=dev), p_opt, s_opt, crop=CROP, mean=I3D_MEAN)
+    pools = sum(layer.type == "pooling" for layer in g_opt.layers)
+    torch.cuda.synchronize()
+    print(f"{I3D_MODEL} setup: {len(server.program.exec_layers)} layers after optimize "
+          f"({pools} pools), {time.perf_counter() - t0:.1f} s")
+
+    reqs = _requests(I3D_REQUESTS, I3D_FRAMES)
+    torch.backends.cudnn.benchmark = True
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_counts()
+    outs, per_req, videos_s, warm_s = _timed_requests(server, reqs)
+    k1, k2, k3 = _counts()
+    k4, route = _pool_counts()
+    pool_bytes = COUNTS["pool.bytes"]
+    if (k1, k2, k3, k4) != (len(reqs), 0, 0, 0) or route != pools * len(reqs):
+        raise AssertionError(f"{I3D_MODEL} serving launched K1, K2, K3, K4 {(k1, k2, k3, k4)} "
+                             f"times and took the pool route {route} times for {len(reqs)} "
+                             f"requests of {pools} pools")
+    print(f"{I3D_MODEL} serving: {len(reqs)} requests ({BATCH} clips of {I3D_FRAMES} frames "
+          f"each), K1 launches {k1}, K2 / K3 / K4 none, the pool route {route} "
+          f"({route // len(reqs)} a request), pool bytes {pool_bytes // len(reqs):,} a request; "
+          f"warm-up {warm_s:.2f} s; timed requests (ms, in order) "
+          f"{[round(t, 3) for t in per_req]}, median {statistics.median(per_req):.3f} ms; "
+          f"{videos_s:.1f} clips/s bf16, host->device copy included; peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; {card}")
+    _check_probs(outs)
+
+    logits32, logits_cpu = _f32_logits_card_and_cpu(dev, g_opt, p_opt, s_opt, reqs[1], I3D_FC,
+                                                    mean=I3D_MEAN)
+    frames, aug = reqs[1]
+    logits16 = UInt8Server(Program(g_opt, device=dev), p_opt, s_opt, crop=CROP,
+                           mean=I3D_MEAN, output=I3D_FC)(frames, **aug)
+    rel = _rel_l2(logits16, logits32)
+    rel_cpu = _rel_l2(logits32[:2].cpu(), logits_cpu)
+    print(f"{I3D_MODEL} logits bf16 vs f32 (TF32 off): rel L2 {rel:.6f} (bound "
+          f"{BF16_LOGITS_REL_L2_BOUND}); f32 card vs f32 CPU, 2 clips: rel L2 {rel_cpu:.3e} "
+          f"(bound {F32_CARD_VS_CPU_REL_L2_BOUND})")
+    if not rel <= BF16_LOGITS_REL_L2_BOUND:
+        raise AssertionError(f"{I3D_MODEL} bf16 logits off f32 by rel L2 {rel}")
+    if not rel_cpu <= F32_CARD_VS_CPU_REL_L2_BOUND:
+        raise AssertionError(f"{I3D_MODEL} f32 logits on the card off the CPU's by rel L2 "
+                             f"{rel_cpu}")
+    return {"k1": k1, "k4": k4, "route": route, "requests": len(reqs)}
 
 
 def check_pool_kernel(dev) -> dict:
@@ -3252,6 +3349,9 @@ def main() -> None:
     k1_full_k2, k2_full, k4_full_k2 = serve_with_pool_kernel(server, reqs, card,
                                                              "eco_full_kinetics", 4)
     del server
+    checked.update(check_k1_i3d(dev))
+    i3d = serve_i3d(dev, card)
+    k4_requests["serve_i3d"] = i3d["requests"]
     k1_int8_lite, k3_int8_lite, server, int8_lite = serve_int8(
         dev, card, "eco_lite_kinetics", "fc8", lite + (lite_logits16,), reqs)
     timed = {}
@@ -3279,12 +3379,13 @@ def main() -> None:
             raise AssertionError(f"the port imported {name}")
     k1_paths = {"serve": k1_serve, "train": k1_train, "test": len(test_batches),
                 "serve_k2": k1_k2serve, "serve_full": k1_full, "serve_full_k2": k1_full_k2,
+                "serve_i3d": i3d["k1"],
                 "serve_int8_lite": k1_int8_lite, "serve_int8_full": k1_int8_full,
                 **online_counts["k1"], **k1_e2e, "remat": remat["k1"], **cli_counts["k1"],
                 **tail["k1"], **parallel["k1"], **probe["k1"]}
     k2_paths = {"test": k2_test, "serve_k2": k2_serve, "serve_full_k2": k2_full}
     k4_paths = {"serve": k4_serve, "serve_k2": k4_k2serve, "serve_full": k4_full,
-                "serve_full_k2": k4_full_k2}
+                "serve_full_k2": k4_full_k2, "serve_i3d": i3d["k4"]}
     k3_paths = {"serve_int8_lite": k3_int8_lite, "serve_int8_full": k3_int8_full,
                 **online_counts["k3"], **cli_counts["k3"], **examples["k3"], **probe["k3"]}
     records = [
@@ -3325,6 +3426,8 @@ def main() -> None:
             "launches": sum(k4_paths.values()),
             "launches_by_path": k4_paths,
             "launches_per_request": {k: v / k4_requests[k] for k, v in k4_paths.items()},
+            # float pools on the card that took the padded route instead
+            "route_by_path": {"serve_i3d": i3d["route"]},
             **pool4_checked,
         },
     ]

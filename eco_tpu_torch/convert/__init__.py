@@ -5,7 +5,12 @@ from eco_tpu_torch.convert.export import (
     save_serving_artifact,
 )
 from eco_tpu_torch.convert.bridge import params_from_jax, params_to_jax
-from eco_tpu_torch.convert.load import convert_conv_weight, fold_bn, import_caffe_weights
+from eco_tpu_torch.convert.load import (
+    convert_conv_weight,
+    fold_bn,
+    fold_input_transform,
+    import_caffe_weights,
+)
 from eco_tpu_torch.convert.quantize import (
     calibrate,
     chain_int8,
@@ -18,9 +23,11 @@ from eco_tpu_torch.spec.transforms import merge_sibling_1x1_convs
 
 def optimize_for_inference(graph, params, state, *, fold: bool = True,
                            merge: bool = True):
-    """Inference-graph optimization pipeline: sibling-1x1 merge + BN fold."""
+    """Inference-graph optimization pipeline: sibling-1x1 merge, then the
+    folds of BN and of an input transform into the convolutions."""
     if merge:
         graph, params, state = merge_sibling_1x1_convs(graph, params, state)
     if fold:
         graph, params, state = fold_bn(graph, params, state)
+        graph, params, state = fold_input_transform(graph, params, state)
     return graph, params, state

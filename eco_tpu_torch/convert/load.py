@@ -15,7 +15,11 @@ transposes it.
   bn_convert_style.py:13-33).
 - :func:`fold_bn`: absorbs inference-mode BN into the preceding
   Convolution / InnerProduct (gen_bn_inference.py:23-80), or makes it a
-  per-channel Scale layer where it cannot fold.
+  per-channel Scale layer where it cannot fold; each BN with its own
+  ``eps``, as the executor runs it.
+- :func:`fold_input_transform`: absorbs an ``input_transform`` layer (a
+  channel reorder and a scale of the clips, as I3D's BGR -> RGB and
+  1/127.5) into the convolutions that read it.
 """
 
 from __future__ import annotations
@@ -129,6 +133,7 @@ def fold_bn(graph: GraphSpec, params: Mapping, state: Mapping,
     Convolution / InnerProduct and the BN is the *sole* consumer of its blob;
     otherwise it becomes a Scale layer with precomputed scale / shift (ECO's
     3D residual adds consume pre-BN conv tops, so those BNs become Scale).
+    Each BN folds with its own ``eps`` option, ``eps`` where it has none.
     """
     producer: dict[str, LayerSpec] = {}
     new_layers: list[LayerSpec] = []
@@ -153,7 +158,7 @@ def fold_bn(graph: GraphSpec, params: Mapping, state: Mapping,
             b = new_params[l.name]["beta"].float()
             m = new_state[l.name]["mean"].float()
             v = new_state[l.name]["var"].float()
-            scale = g / torch.sqrt(v + eps)
+            scale = g / torch.sqrt(v + float(l.opt("eps", eps)))
             shift = b - m * scale
             foldable = (
                 src is not None
@@ -184,3 +189,45 @@ def fold_bn(graph: GraphSpec, params: Mapping, state: Mapping,
     folded = GraphSpec(graph.name + "_folded", dict(graph.inputs), new_layers,
                        dict(graph.options))
     return folded, new_params, new_state
+
+
+def fold_input_transform(graph: GraphSpec, params: Mapping, state: Mapping):
+    """Absorb each ``input_transform`` layer whose every consumer is a
+    convolution (not transposed, one group) into their weights; returns
+    (new_graph, new_params, state).
+
+    The layer computes ``y[..., i] = scale * x[..., channel_order[i]]``, so
+    a convolution of ``y`` is the convolution of ``x`` whose weights take
+    input channel ``channel_order[i]`` from ``scale * w[:, i]``.  Exact with
+    any zero padding of the convolution: the layer maps zero to zero, so a
+    padded cell is the same in both domains.  A transform with any other
+    consumer stays a layer.
+    """
+    new_params = {k: dict(v) for k, v in params.items()}
+    consumers: dict[str, list[LayerSpec]] = {}
+    for l in graph.layers:
+        for b in l.bottoms:
+            consumers.setdefault(b, []).append(l)
+    rename: dict[tuple[str, str], str] = {}  # (consumer, bottom) -> new bottom
+    drop: set[str] = set()
+    for l in graph.layers:
+        if l.type != "input_transform":
+            continue
+        readers = consumers.get(l.tops[0], [])
+        if not readers or any(
+                c.type != "convolution" or c.opt("transposed", False)
+                or int(c.opt("group", 1)) != 1 or c.bottoms != l.tops for c in readers):
+            continue
+        order = torch.as_tensor([int(i) for i in l.opt("channel_order")])
+        scale = float(l.opt("scale", 1.0))
+        for c in readers:
+            w = new_params[c.name]["w"].float()
+            folded = torch.empty_like(w)
+            folded[:, order] = w * scale
+            new_params[c.name]["w"] = folded
+            rename[(c.name, l.tops[0])] = l.bottoms[0]
+        drop.add(l.name)
+    layers = [l.replace(bottoms=tuple(rename.get((l.name, b), b) for b in l.bottoms))
+              for l in graph.layers if l.name not in drop]
+    return (GraphSpec(graph.name, dict(graph.inputs), layers, dict(graph.options)),
+            new_params, state)

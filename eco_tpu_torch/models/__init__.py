@@ -2,10 +2,12 @@
 
 The builders hold no framework code; the port keeps its own copy so that it
 never imports ``eco_tpu``.  ``tests/test_torch_spec.py`` holds every builder's
-``graph_to_json`` equal to the reference's.
+``graph_to_json`` equal to the reference's.  I3D (``models/i3d.py``) is the
+port's own, held to the plain reference of ``tests/reference_i3d.py``.
 """
 
 from eco_tpu_torch.models.eco import build_eco_full, build_eco_lite
+from eco_tpu_torch.models.i3d import build_i3d
 from eco_tpu_torch.models.zoo import REGISTRY, get_model
 
-__all__ = ["REGISTRY", "build_eco_full", "build_eco_lite", "get_model"]
+__all__ = ["REGISTRY", "build_eco_full", "build_eco_lite", "build_i3d", "get_model"]

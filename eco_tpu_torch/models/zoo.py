@@ -1,4 +1,6 @@
-"""Model zoo: the 8 reference configurations (2 families x 4 datasets).
+"""Model zoo: the 8 reference configurations (2 families x 4 datasets),
+C3D-ResNet-18 (ECO's 3D head's initialisation) and I3D-RGB on Kinetics-400,
+which only this package has.
 
 Class counts and classifier names match the reference prototxts
 (models_ECO_Lite/*/ECO_Lite.prototxt:1858-1881 and models_ECO_Full/*):
@@ -34,6 +36,10 @@ from eco_tpu_torch.models.c3d_resnet18 import build_c3d_resnet18
 
 REGISTRY["c3d_resnet18_kinetics"] = partial(build_c3d_resnet18, num_classes=400)
 REGISTRY["c3d_resnet18_ucf101"] = partial(build_c3d_resnet18, num_classes=101)
+
+from eco_tpu_torch.models.i3d import build_i3d
+
+REGISTRY["i3d_rgb_kinetics"] = partial(build_i3d, num_classes=400)
 
 
 def get_model(name: str, **overrides):

@@ -51,6 +51,16 @@ def to_physical(x: torch.Tensor) -> torch.Tensor:
         return x.movedim(1, -1).contiguous()
 
 
+def pad_spatial(x: torch.Tensor, pads, value=0.0) -> torch.Tensor:
+    """Pad the spatial axes of (N, *spatial, C) by [(lo, hi), ...] (negative
+    ``hi`` crops), in an ``eco.pad`` span."""
+    flat = [0, 0]  # channels (last axis) first: F.pad lists axes from the end
+    for lo, hi in reversed(pads):
+        flat += [lo, hi]
+    with span("eco.pad"):
+        return F.pad(x, flat, value=value)
+
+
 def extract_windows(x: torch.Tensor, kernel, stride, outs, dilation=None) -> torch.Tensor:
     """The window gather shared by :func:`im2col` and
     ``ops.pool.extract_pool_windows``: one strided slice of the (already

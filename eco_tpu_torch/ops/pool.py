@@ -20,6 +20,11 @@ those.
   also K4's plain version.  ``COUNTS["pool.route"]`` counts the float pools
   on the card that take it.
 
+``COUNTS["pool.bytes"]`` adds every call's least traffic, whatever its
+route: the input read once and the output written once, from the shapes
+alone (no launch, no sync); not while shapes propagate on the meta device
+or ``torch.export`` traces.
+
 The padded route:
 
 - MAX pads with ``-inf`` (the integer minimum for integer types) and then
@@ -49,6 +54,7 @@ Spans (``utils/tracing.py``): ``eco.pad`` around every spatial padding,
 from __future__ import annotations
 
 import functools
+import math
 import os
 
 import numpy as np
@@ -61,21 +67,11 @@ from eco_tpu_torch.utils.shapes import (
     normalize_spatial_param,
 )
 from eco_tpu_torch.ops import poolfuse, poolk
-from eco_tpu_torch.ops.layout import extract_windows
+from eco_tpu_torch.ops.layout import extract_windows, pad_spatial
 from eco_tpu_torch.utils.tracing import COUNTS, span
 
 _MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
 _AVG_POOL = {1: F.avg_pool1d, 2: F.avg_pool2d, 3: F.avg_pool3d}
-
-
-def _pad_spatial(x, pad_cfg, value):
-    """Pad the spatial axes of (N, *spatial, C) by [(lo, hi), ...] (negative
-    ``hi`` crops)."""
-    flat = [0, 0]  # channels (last axis) first: F.pad lists axes from the end
-    for lo, hi in reversed(pad_cfg):
-        flat += [lo, hi]
-    with span("eco.pad"):
-        return F.pad(x, flat, value=value)
 
 
 def _windows(x, kernel, stride):
@@ -121,6 +117,11 @@ def pool_nd(
         mode = "ave"
     if mode not in ("max", "ave"):
         raise ValueError(f"unknown pool mode {mode!r}")
+    # a trace (torch.export) has symbolic sizes and no work to count
+    if not (x.is_meta or torch.compiler.is_compiling()):
+        out = math.prod(caffe_pool_out_dim(size, k, s, p)[0]
+                        for size, k, s, p in zip(x.shape[1:-1], kernel, stride, pad))
+        COUNTS["pool.bytes"] += (x.numel() + x.shape[0] * out * x.shape[-1]) * x.element_size()
     if (mode == "max" and os.environ.get("ECO_PALLAS_POOL") == "1"
             and x.device.type == "cuda" and x.dtype.is_floating_point
             and poolfuse.supports(x.shape, kernel, stride, pad, mode)):
@@ -143,11 +144,11 @@ def padded_pool(x: torch.Tensor, kernel, stride, pad, mode: str) -> torch.Tensor
     pad_cfg = [(p, pad_hi) for p, (_, pad_hi) in zip(pad, dims)]
     if mode == "max":
         if x.dtype.is_floating_point:
-            xp = _pad_spatial(x, pad_cfg, float("-inf"))
+            xp = pad_spatial(x, pad_cfg, float("-inf"))
             y = _MAX_POOL[num_spatial](xp.movedim(-1, 1), kernel, stride)
             with span("eco.layout"):
                 return y.movedim(1, -1).contiguous()
-        xp = _pad_spatial(x, pad_cfg, torch.iinfo(x.dtype).min)
+        xp = pad_spatial(x, pad_cfg, torch.iinfo(x.dtype).min)
         return _windows(xp, kernel, stride).amax(dim=tuple(range(-num_spatial, 0)))
     # ATen's own pads where it takes them and its ceil rule gives Caffe's dims,
     # and no gradient is asked: ATen's CUDA backward of this call put an f32
@@ -160,7 +161,7 @@ def padded_pool(x: torch.Tensor, kernel, stride, pad, mode: str) -> torch.Tensor
         y = _AVG_POOL[num_spatial](x.movedim(-1, 1), kernel, stride, pad, ceil_mode=True,
                                    count_include_pad=True)
         return y.movedim(1, -1).contiguous()
-    xp = _pad_spatial(x.float(), pad_cfg, 0.0).movedim(-1, 1)
+    xp = pad_spatial(x.float(), pad_cfg, 0.0).movedim(-1, 1)
     if num_spatial == 1:  # ATen's 1D average pool takes no divisor
         acc = F.avg_pool2d(xp[:, :, None], (1, *kernel), (1, *stride), divisor_override=1)[:, :, 0]
     else:
@@ -186,7 +187,7 @@ def extract_pool_windows(x: torch.Tensor, kernel, stride) -> torch.Tensor:
             for size, k, s in zip(spatial, kernel, stride)]
     need = [max(0, (o - 1) * s + k - size)
             for o, s, k, size in zip(outs, stride, kernel, spatial)]
-    xp = _pad_spatial(x, [(0, n) for n in need], 0.0)
+    xp = pad_spatial(x, [(0, n) for n in need], 0.0)
     return extract_windows(xp, kernel, stride, outs)
 
 

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from eco_tpu_torch.ops import qconv
+from eco_tpu_torch.ops.conv import split_pad
 
 
 def _scalar(v: float, like: torch.Tensor) -> torch.Tensor:
@@ -76,9 +77,11 @@ def conv_nd_int8(x, w_q, w_scale, b=None, *, act_scale: float, stride=1, pad=0,
     ``x``: float (N, *spatial, C_in), quantized here at ``act_scale``, or
     int8 already at ``act_scale``.  ``w_q``: int8 (C_out, C_in/g, *k),
     best in ``qconv.kernel_layout``; ``w_scale``: f32 (C_out,).
-    ``out_scale`` set -> int8 output at that scale.
+    ``out_scale`` set -> int8 output at that scale.  ``pad`` as
+    ``ops.conv.conv_nd`` takes it: an asymmetric one pads the int8 input.
     """
     x_q, out_dtype = _quantized_input(x, act_scale, out_dtype)
+    x_q, pad = split_pad(x_q, pad)
     # K3 reads channels-last rows; the executor's blobs already are
     return qconv.qconv_nd(
         x_q.contiguous(), w_q, _scale_vec(act_scale, w_scale),

@@ -359,6 +359,20 @@ class _Pooling(LayerImpl):
         )]
 
 
+class _InputTransform(LayerImpl):
+    """A channel reorder and a scale, ``y[..., i] = scale * x[...,
+    channel_order[i]]``: what a model trained on other clips than the
+    serving plane's makes of them (I3D: RGB in [-1, 1] from K1's BGR minus
+    127.5).  ``optimize_for_inference`` folds it into the convolutions that
+    read it (``convert.load.fold_input_transform``)."""
+
+    def apply(self, spec, params, state, inputs, ctx):
+        x = inputs[0]
+        # a channel at a time: an index tensor would be a copy from the host
+        y = torch.stack([x[..., int(i)] for i in spec.opt("channel_order")], dim=-1)
+        return [y * float(spec.opt("scale", 1.0))]
+
+
 class _Dropout(LayerImpl):
     def apply(self, spec, params, state, inputs, ctx):
         x = inputs[0]
@@ -951,6 +965,7 @@ IMPLS: dict[str, LayerImpl] = {
     "scale": _Scale(),
     "relu": _ReLU(),
     "pooling": _Pooling(),
+    "input_transform": _InputTransform(),
     "dropout": _Dropout(),
     "eltwise": _Eltwise(),
     "concat": _Concat(),

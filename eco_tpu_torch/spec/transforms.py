@@ -5,7 +5,9 @@ Inception blocks launch up to three 1x1 convs (+BN+ReLU) from one bottom.
 Merging them into one conv with concatenated output channels reads the input
 once and gives the GEMM a wider N; the per-branch tops become channel slices.
 Legal only at inference (per-branch BNs concatenate exactly); the pattern
-requires conv -> BN (sole consumer) -> in-place ReLU.
+requires conv -> BN (sole consumer) -> in-place ReLU, and the merged BN
+takes its members' options, so only BNs of one ``eps`` merge.  2D 1x1 and
+3D 1x1x1 siblings (I3D's three a module) merge alike.
 
 Ported rather than borrowed: the reference's version concatenates with
 ``jax.numpy``.  Weights are ``(C_out, C_in, 1, 1)`` here, so they
@@ -22,12 +24,16 @@ import torch
 from eco_tpu_torch.spec.graph import GraphSpec, LayerSpec
 
 
+def _hashable(v):
+    return tuple(_hashable(x) for x in v) if isinstance(v, list) else v
+
+
 def _conv_key(l: LayerSpec):
     return (
         l.bottoms,
         tuple(np.atleast_1d(l.opt("kernel_size", 1)).tolist()),
         tuple(np.atleast_1d(l.opt("stride", 1)).tolist()),
-        tuple(np.atleast_1d(l.opt("pad", 0)).tolist()),
+        _hashable(np.atleast_1d(l.opt("pad", 0)).tolist()),
         int(l.opt("group", 1)),
         bool(l.opt("bias_term", True)),
     )
@@ -70,14 +76,14 @@ def merge_sibling_1x1_convs(graph: GraphSpec, params: Mapping, state: Mapping):
         chain = chain_of(l)
         if chain is None or chain[1] is None:
             continue
-        groups.setdefault(_conv_key(l), []).append(l)
+        groups.setdefault((_conv_key(l), chain[0].opt("eps")), []).append(l)
 
     new_params = {k: dict(v) for k, v in params.items()}
     new_state = {k: dict(v) for k, v in state.items()}
     remove: set[str] = set()
     insert: dict[str, list[LayerSpec]] = {}  # anchor conv name -> new layers
 
-    for key, convs in groups.items():
+    for (key, _), convs in groups.items():
         if len(convs) < 2:
             continue
         convs = sorted(convs, key=lambda l: index[l.name])

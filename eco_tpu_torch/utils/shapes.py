@@ -36,6 +36,21 @@ def normalize_spatial_param(value, num_spatial: int, default=0):
     return value
 
 
+def conv_pads(value, num_spatial: int) -> tuple[tuple[int, int], ...]:
+    """A conv's padding as one ``(lo, hi)`` pair an axis.
+
+    ``value`` is Caffe's symmetric ``pad`` (anything
+    :func:`normalize_spatial_param` takes) or one ``(lo, hi)`` pair an
+    axis, the form an asymmetric padding takes in a graph (TF's "SAME" at
+    stride 2 on an even size pads one more cell at the end)."""
+    if isinstance(value, (list, tuple)) and any(isinstance(v, (list, tuple)) for v in value):
+        if len(value) != num_spatial or any(len(v) != 2 for v in value):
+            raise ValueError(f"pad {value} is not one (lo, hi) pair for each of "
+                             f"{num_spatial} spatial axes")
+        return tuple((int(lo), int(hi)) for lo, hi in value)
+    return tuple((p, p) for p in normalize_spatial_param(value, num_spatial, default=0))
+
+
 def caffe_conv_out_dim(in_size: int, k: int, s: int, p: int, dilation: int = 1) -> int:
     """floor((in + 2p - k_ext)/s) + 1 with k_ext = dilation*(k-1)+1."""
     k_ext = dilation * (k - 1) + 1

@@ -17,7 +17,9 @@
   and ``k4.launches`` (launches of the hand-written kernels of
   ``ops/preprocess.py``, ``ops/poolfuse.py``, ``ops/qconv.py`` and
   ``ops/poolk.py``), ``pool.route`` (float pools on the card that took
-  ``ops/pool.py``'s padded route instead of K4).  Take a difference around
+  ``ops/pool.py``'s padded route instead of K4), ``pool.bytes`` (the least
+  bytes of every ``ops/pool.py:pool_nd`` call: input read once, output
+  written once).  Take a difference around
   the stretch of interest.
 """
 
