@@ -70,9 +70,14 @@ Phases (every failure raises; the exit code is then non-zero):
     version in bf16, f32 and int8; and full-width I3D-RGB Kinetics (64
     frames, 224 crop, ``Conv3d_0c_1x1``) at batch 8, optimized for inference,
     served by the bf16 ``UInt8Server`` with mean 127.5: a warm-up request
-    and three timed, K1 once a request, K2, K3 and K4 never, every one of
-    its 14 3D pools on the padded route (counted by path in the
-    ``kernels`` line), the probabilities and logits checked as in phase 3.
+    and three timed, K1 once a request, K2 and K3 never, K4 once for each
+    of its 14 3D pools (12 on the 3D path; counted by path in the
+    ``kernels`` line) and none on the padded route, the probabilities and
+    logits checked as in phase 3.  Then K4 against its plain version at
+    every I3D pool (``I3D_POOLS``, 8 clips) in f32, bf16 and f16: equal;
+    then K4, the route and the library's pool (``max_pool3d`` /
+    ``avg_pool3d``) timed in bf16 in CUDA graphs beside K4's bound, by pool
+    and summed over a request.
 11. int8 serving of ECO-Lite and of ECO-Full: ``quantize_for_serving`` of the
     optimized graph, calibrated on two batches of K1's f32 clips, served in
     bf16 by ``UInt8Server(int8_input=True)`` (K1 emits int8 into conv1): K1
@@ -308,6 +313,24 @@ NUM_CLASSES = 400
 # warm-up request and three timed
 I3D_MODEL, I3D_FC, I3D_FRAMES, I3D_REQUESTS = "i3d_rgb_kinetics", "Conv3d_0c_1x1", 64, 4
 I3D_MEAN = (127.5, 127.5, 127.5)
+# every pool of I3D-RGB at 64 x 224 x 224, which K4 takes in serving: (T, H,
+# W, C) of a clip, kernel, stride and pad (t, h, w), mode, and how often a
+# request runs it; held and timed at BATCH clips (the card tests and the
+# plan's CPU tests read it too).  The first two pool each frame alone (K4's
+# 2D path over the (N * T, H, W, C) view), the others take its 3D path.
+I3D_POOLS = {
+    "MaxPool3d_2a_3x3": ((32, 112, 112, 64), (1, 3, 3), (1, 2, 2), (0, 0, 0), "max", 1),
+    "MaxPool3d_3a_3x3": ((32, 56, 56, 192), (1, 3, 3), (1, 2, 2), (0, 0, 0), "max", 1),
+    "Mixed_3b_pool": ((32, 28, 28, 192), (3, 3, 3), (1, 1, 1), (1, 1, 1), "max", 1),
+    "Mixed_3c_pool": ((32, 28, 28, 256), (3, 3, 3), (1, 1, 1), (1, 1, 1), "max", 1),
+    "MaxPool3d_4a_3x3": ((32, 28, 28, 480), (3, 3, 3), (2, 2, 2), (0, 0, 0), "max", 1),
+    "Mixed_4b_pool": ((16, 14, 14, 480), (3, 3, 3), (1, 1, 1), (1, 1, 1), "max", 1),
+    "Mixed_4c_pool": ((16, 14, 14, 512), (3, 3, 3), (1, 1, 1), (1, 1, 1), "max", 3),  # 4c-4e
+    "Mixed_4f_pool": ((16, 14, 14, 528), (3, 3, 3), (1, 1, 1), (1, 1, 1), "max", 1),
+    "MaxPool3d_5a_2x2": ((16, 14, 14, 832), (2, 2, 2), (2, 2, 2), (0, 0, 0), "max", 1),
+    "Mixed_5b_pool": ((8, 7, 7, 832), (3, 3, 3), (1, 1, 1), (1, 1, 1), "max", 2),  # 5b, 5c
+    "Logits_AvgPool3d_0a_7x7": ((8, 7, 7, 1024), (2, 7, 7), (1, 1, 1), (0, 0, 0), "ave", 1),
+}
 # examples/train_synthetic.py's solver
 SOLVER = dict(base_lr=0.005, lr_policy="fixed", momentum=0.9, weight_decay=5e-4,
               clip_gradients=40.0, iter_size=1, solver_type="nesterov")
@@ -795,8 +818,8 @@ def _pallas_pool(on: bool):
 
 
 def _reset_counts():
-    for k in ("k1.launches", "k2.launches", "k3.launches", "k4.launches", "pool.route",
-              "pool.bytes"):
+    for k in ("k1.launches", "k2.launches", "k3.launches", "k4.launches", "k4.launches.3d",
+              "pool.route", "pool.bytes"):
         COUNTS[k] = 0
 
 
@@ -811,6 +834,12 @@ def _pool_counts():
     route, since ``_reset_counts``."""
     torch.cuda.synchronize()
     return COUNTS["k4.launches"], COUNTS["pool.route"]
+
+
+def _i3d_pools(path3d: bool = False) -> int:
+    """I3D's pools a request, or (``path3d``) those on K4's 3D path: a
+    window of more than one frame."""
+    return sum(v[5] for v in I3D_POOLS.values() if not path3d or v[1][0] > 1)
 
 
 def check_k1_i3d(dev) -> dict:
@@ -842,10 +871,11 @@ def serve_i3d(dev, card: str) -> dict:
     """Full-width I3D-RGB (400 classes, 64 frames, 224 crop) at batch
     ``BATCH`` with seeded random weights, optimized for inference (the input
     transform and every BN folded), served by the bf16 ``UInt8Server`` with
-    mean 127.5.  K1 must launch once a request, K2, K3 and K4 never, and every
-    pool take the padded route.  The logits are held to an f32 run of the
-    same server (TF32 off), and that run to the f32 server on the CPU for
-    two of the clips.  Returns the launch and route counts."""
+    mean 127.5.  K1 must launch once a request, K2 and K3 never, K4 once a
+    pool (12 of the 14 on its 3D path), and no pool take the padded route.
+    The logits are held to an f32 run of the same server (TF32 off), and that
+    run to the f32 server on the CPU for two of the clips.  Returns the
+    launch and route counts."""
     t0 = time.perf_counter()
     graph = get_model(I3D_MODEL, batch=BATCH, num_frames=I3D_FRAMES, crop_size=CROP)
     params, state = Program(graph, device=dev).init(
@@ -864,14 +894,16 @@ def serve_i3d(dev, card: str) -> dict:
     outs, per_req, videos_s, warm_s = _timed_requests(server, reqs)
     k1, k2, k3 = _counts()
     k4, route = _pool_counts()
-    pool_bytes = COUNTS["pool.bytes"]
-    if (k1, k2, k3, k4) != (len(reqs), 0, 0, 0) or route != pools * len(reqs):
-        raise AssertionError(f"{I3D_MODEL} serving launched K1, K2, K3, K4 {(k1, k2, k3, k4)} "
-                             f"times and took the pool route {route} times for {len(reqs)} "
-                             f"requests of {pools} pools")
+    k4_3d, pool_bytes = COUNTS["k4.launches.3d"], COUNTS["pool.bytes"]
+    want = (len(reqs), 0, 0, pools * len(reqs), _i3d_pools(path3d=True) * len(reqs), 0)
+    if pools != _i3d_pools() or (k1, k2, k3, k4, k4_3d, route) != want:
+        raise AssertionError(f"{I3D_MODEL} serving launched K1, K2, K3, K4, K4 in 3D "
+                             f"{(k1, k2, k3, k4, k4_3d)} times and took the pool route "
+                             f"{route} times for {len(reqs)} requests of {pools} pools")
     print(f"{I3D_MODEL} serving: {len(reqs)} requests ({BATCH} clips of {I3D_FRAMES} frames "
-          f"each), K1 launches {k1}, K2 / K3 / K4 none, the pool route {route} "
-          f"({route // len(reqs)} a request), pool bytes {pool_bytes // len(reqs):,} a request; "
+          f"each), K1 launches {k1}, K2 / K3 none, K4 {k4} ({k4 // len(reqs)} a request, "
+          f"{k4_3d // len(reqs)} of them 3D), the pool route {route}, pool bytes "
+          f"{pool_bytes // len(reqs):,} a request; "
           f"warm-up {warm_s:.2f} s; timed requests (ms, in order) "
           f"{[round(t, 3) for t in per_req]}, median {statistics.median(per_req):.3f} ms; "
           f"{videos_s:.1f} clips/s bf16, host->device copy included; peak memory "
@@ -893,7 +925,7 @@ def serve_i3d(dev, card: str) -> dict:
     if not rel_cpu <= F32_CARD_VS_CPU_REL_L2_BOUND:
         raise AssertionError(f"{I3D_MODEL} f32 logits on the card off the CPU's by rel L2 "
                              f"{rel_cpu}")
-    return {"k1": k1, "k4": k4, "route": route, "requests": len(reqs)}
+    return {"k1": k1, "k4": k4, "k4_3d": k4_3d, "route": route, "requests": len(reqs)}
 
 
 def check_pool_kernel(dev) -> dict:
@@ -1023,6 +1055,61 @@ def check_pool4_kernel(dev, card: str) -> dict:
               f"{r['bound_ms']:.4f} ({r['bound_ms'] / r['ms']:.1%}); K4's host "
               f"{r['host_ms_per_call']:.4f} ms; {card}")
     return {"bound_by": "bytes", "by_pool": times, "per_request": per_request}
+
+
+def check_pool4_i3d(dev, card: str) -> dict:
+    """K4 against its plain version (the padded route) at I3D_POOLS, BATCH
+    clips, in f32, bf16 and f16 (``torch.equal``), then timed in bf16 in CUDA
+    graphs beside its bound, the route and the library's pool
+    (``max_pool3d`` / ``avg_pool3d`` with ``ceil_mode`` on the channels-last
+    NCDHW view, a yardstick); returns the times by pool and summed over a
+    request."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    times = {}
+    for name, ((t, h, w, c), k, s, p, mode, _) in I3D_POOLS.items():
+        base = torch.randn((BATCH, t, h, w, c), device=dev, generator=gen)
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            y = base.to(dtype)
+            got = poolk.caffe_pool3d(y, k, s, p, mode)
+            want = pool.padded_pool(y, k, s, p, mode)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                err = (got.float() - want.float()).abs().max().item()
+                raise AssertionError(f"K4 disagrees with its plain version: {name} {dtype} "
+                                     f"max_abs_err={err}")
+        y = base.to(torch.bfloat16)
+        del base, got, want
+        ncdhw = y.permute(0, 4, 1, 2, 3)
+        if mode == "max":
+            library = lambda: torch.nn.functional.max_pool3d(ncdhw, k, s, p, ceil_mode=True)
+        else:
+            library = lambda: torch.nn.functional.avg_pool3d(
+                ncdhw, k, s, p, ceil_mode=True, count_include_pad=True)
+        kernel = lambda: poolk.caffe_pool3d(y, k, s, p, mode)
+        plain = lambda: pool.padded_pool(y, k, s, p, mode)
+        # plain, library, kernel, kernel, library, plain
+        p1, l1, k1, k2, l2, p2 = (_graph_ms(f, K4_GRAPH_CALLS) for f in
+                                  (plain, library, kernel, kernel, library, plain))
+        out = kernel()
+        moved = (y.numel() + out.numel()) * 2  # bf16 read + write
+        path = "2D" if k[0] == 1 else "3D"
+        t_ = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": (l1 + l2) / 2,
+              "bound_ms": _bound_ms(moved)[0], "moved_mb": moved / 1e6, "path": path}
+        print(f"K4 bf16 I3D {name} {tuple(y.shape)} {k}/s{s}/p{p} {mode}, {path} path, equal "
+              f"to the route in f32/bf16/f16; CUDA graphs of {K4_GRAPH_CALLS} calls: kernel "
+              f"{t_['ms']:.4f} ms ({k1:.4f}, {k2:.4f}), route {t_['plain_ms']:.4f} ms "
+              f"({p1:.4f}, {p2:.4f}), library {t_['library_ms']:.4f} ms ({l1:.4f}, "
+              f"{l2:.4f}); bound {t_['bound_ms']:.4f} ms ({moved / 1e6:.1f} MB), kernel at "
+              f"{t_['bound_ms'] / t_['ms']:.1%} of it; {card}")
+        times[name] = t_
+        del y, ncdhw, out
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    per_request = {key: sum(times[n][key] * I3D_POOLS[n][5] for n in times) for key in keys}
+    r = per_request
+    print(f"K4 {I3D_MODEL}, a request's {_i3d_pools()} pools at {BATCH} clips: kernel "
+          f"{r['ms']:.4f} ms, route {r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
+          f"{r['bound_ms']:.4f} ({r['bound_ms'] / r['ms']:.1%}); {card}")
+    return {"by_pool": times, "per_request": per_request}
 
 
 def _qconv_case(dev, gen, name):
@@ -3352,6 +3439,7 @@ def main() -> None:
     checked.update(check_k1_i3d(dev))
     i3d = serve_i3d(dev, card)
     k4_requests["serve_i3d"] = i3d["requests"]
+    pool4_i3d = check_pool4_i3d(dev, card)
     k1_int8_lite, k3_int8_lite, server, int8_lite = serve_int8(
         dev, card, "eco_lite_kinetics", "fc8", lite + (lite_logits16,), reqs)
     timed = {}
@@ -3426,9 +3514,12 @@ def main() -> None:
             "launches": sum(k4_paths.values()),
             "launches_by_path": k4_paths,
             "launches_per_request": {k: v / k4_requests[k] for k, v in k4_paths.items()},
+            # of which on the 3D path
+            "launches_3d_by_path": {"serve_i3d": i3d["k4_3d"]},
             # float pools on the card that took the padded route instead
             "route_by_path": {"serve_i3d": i3d["route"]},
             **pool4_checked,
+            "i3d": pool4_i3d,
         },
     ]
     print(json.dumps({"kernels": records}))

@@ -9,13 +9,14 @@ those.
 
 ``pool_nd`` routes by what the input shows:
 
-- a float 2D MAX or AVE pool of a contiguous tensor on the card, with no
-  gradient asked and no trace running, goes to K4, the one-pass kernel of
-  ``ops/poolk.py`` (``poolk.takes``); with ``ECO_PALLAS_POOL=1`` a float
-  3x3/s2/pad-0 max pool with even H and W on the card goes to the fused
-  kernel of ``ops/poolfuse.py`` (K2) first, as the reference's goes to its
-  Pallas kernel on the TPU; K2 has no backward and raises when a gradient
-  is asked through it;
+- a float 2D or 3D MAX or AVE pool of a contiguous tensor on the card, with
+  no gradient asked and no trace running, goes to K4, the one-pass kernel of
+  ``ops/poolk.py`` (``poolk.takes``, then ``poolk.launch``, which pools a
+  3D window of one frame as a 2D pool of each frame); with
+  ``ECO_PALLAS_POOL=1`` a float 3x3/s2/pad-0 max pool with even H and W on
+  the card goes to the fused kernel of ``ops/poolfuse.py`` (K2) first, as
+  the reference's goes to its Pallas kernel on the TPU; K2 has no backward
+  and raises when a gradient is asked through it;
 - everything else takes the padded route, :func:`padded_pool`, which is
   also K4's plain version.  ``COUNTS["pool.route"]`` counts the float pools
   on the card that take it.
@@ -127,7 +128,7 @@ def pool_nd(
             and poolfuse.supports(x.shape, kernel, stride, pad, mode)):
         return poolfuse.fused_maxpool_3x3s2(x)
     if poolk.takes(x, mode):
-        return poolk.caffe_pool2d(x, kernel, stride, pad, mode)
+        return poolk.launch(x, kernel, stride, pad, mode)
     if x.device.type == "cuda" and x.dtype.is_floating_point:
         COUNTS["pool.route"] += 1
     return padded_pool(x, kernel, stride, pad, mode)

@@ -16,7 +16,8 @@
   videos they scored), ``k1.launches``, ``k2.launches``, ``k3.launches``
   and ``k4.launches`` (launches of the hand-written kernels of
   ``ops/preprocess.py``, ``ops/poolfuse.py``, ``ops/qconv.py`` and
-  ``ops/poolk.py``), ``pool.route`` (float pools on the card that took
+  ``ops/poolk.py``), ``k4.launches.3d`` (those of K4's 3D path),
+  ``pool.route`` (float pools on the card that took
   ``ops/pool.py``'s padded route instead of K4), ``pool.bytes`` (the least
   bytes of every ``ops/pool.py:pool_nd`` call: input read once, output
   written once).  Take a difference around

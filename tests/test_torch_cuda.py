@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import K4_FRAMES, K4_POOLS
+from chip_smoke import I3D_POOLS, K4_FRAMES, K4_POOLS
 from eco_tpu_torch.apps import RawPreprocessProgram, UInt8Server
 from eco_tpu_torch.data import prefetch_to_device
 from eco_tpu_torch.convert import optimize_for_inference, quantize_for_serving
@@ -429,6 +429,118 @@ def test_k4_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         poolk.caffe_pool2d(x, (3, 3), (2, 2), (-1, 0), "max")
 
 
+def _k4_held3(x, k, s, p, mode):
+    """``pool_nd`` of the 5D ``x`` takes K4 once (its 3D path unless the
+    window along T is one frame, with stride 1 and no pad) and no route, and
+    equals the plain route on the card bit for bit."""
+    k4, k4_3d, route = COUNTS["k4.launches"], COUNTS["k4.launches.3d"], COUNTS["pool.route"]
+    got = pool.pool_nd(x, kernel=k, stride=s, pad=p, mode=mode)
+    torch.cuda.synchronize()
+    path3d = (k[0], s[0], p[0]) != (1, 1, 0)
+    assert (COUNTS["k4.launches"], COUNTS["k4.launches.3d"], COUNTS["pool.route"]) == (
+        k4 + 1, k4_3d + path3d, route)
+    want = pool.padded_pool(x, k, s, p, mode)
+    assert got.dtype == x.dtype and got.is_contiguous() and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mode", ["max", "ave"])
+@pytest.mark.parametrize("dtype", FLOATS)
+@pytest.mark.parametrize("name", sorted(I3D_POOLS))
+def test_k4_3d_equals_plain_route_at_every_i3d_pool(cuda, name, dtype, mode):
+    """At each of I3D's pool geometries, 2 clips, in both modes (I3D's own
+    are 13 MAX and the logits' AVE)."""
+    (t, h, w, c), k, s, p, _, _ = I3D_POOLS[name]
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((2, t, h, w, c), device=cuda, generator=gen).to(dtype)
+    _k4_held3(x, k, s, p, mode)
+
+
+@pytest.mark.parametrize("mode", ["max", "ave"])
+@pytest.mark.parametrize("shape,k,s,p", [
+    ((2, 5, 9, 11, 16), (2, 3, 3), (1, 2, 2), (1, 1, 1)),
+    ((2, 6, 8, 8, 32), (3, 2, 2), (3, 2, 2), (0, 0, 0)),
+    ((2, 5, 6, 6, 8), (4, 3, 3), (2, 1, 1), (2, 1, 1)),
+    ((2, 7, 9, 9, 16), (3, 3, 3), (2, 2, 2), (1, 1, 1)),
+    ((2, 7, 8, 8, 16), (3, 3, 3), (2, 2, 2), (2, 2, 0)),
+    ((2, 9, 10, 13, 16), (3, 3, 3), (1, 1, 1), (1, 1, 1)),
+    ((2, 5, 7, 7, 24), (2, 7, 7), (1, 1, 1), (0, 0, 0)),
+    ((2, 7, 9, 11, 24), (2, 2, 2), (2, 2, 2), (1, 0, 1)),
+    ((2, 5, 9, 11, 5), (3, 3, 3), (1, 1, 1), (1, 1, 1)),
+    ((2, 4, 8, 12, 12), (2, 2, 2), (2, 2, 2), (0, 0, 0)),
+    ((3, 4, 9, 9, 16), (1, 3, 3), (1, 2, 2), (0, 1, 1)),
+    ((3, 5, 9, 9, 16), (1, 3, 3), (2, 2, 2), (0, 1, 1))])
+def test_k4_3d_generic_and_scalar_paths_equal_plain_route(cuda, shape, k, s, p, mode):
+    """Windows outside the tile path's four, and its four in the mode it is
+    not instantiated for (the scalar path); its four with pads, ragged tiles
+    and ceil-mode clips in all three axes; C of 5 (bf16, f16 and f32) or 12
+    (bf16 and f16) with no whole 16-byte vector (the scalar path); a window
+    of one frame (K4's 2D path over the frames), and of one frame with
+    stride 2 (the 3D path's scalar kernel)."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    base = torch.randn(shape, device=cuda, generator=gen)
+    for dtype in FLOATS:
+        _k4_held3(base.to(dtype), k, s, p, mode)
+
+
+@pytest.mark.parametrize("mode", ["max", "ave"])
+def test_k4_3d_scalar_path_on_an_unaligned_view(cuda, mode):
+    base = torch.randn(1 + 2 * 4 * 8 * 8 * 8, device=cuda).to(torch.bfloat16)
+    x = base[1:].view(2, 4, 8, 8, 8)  # 2-byte offset: no 16-byte vectors
+    assert x.data_ptr() % 16 != 0
+    assert not poolk.plan3d(x.shape, (3, 3, 3), (1, 1, 1), (1, 1, 1), mode, 2,
+                            aligned=False).tiled
+    _k4_held3(x, (3, 3, 3), (1, 1, 1), (1, 1, 1), mode)
+
+
+@pytest.mark.parametrize("dtype", FLOATS)
+@pytest.mark.parametrize("k,s,p", [((3, 3, 3), (1, 1, 1), (1, 1, 1)),
+                                   ((3, 3, 3), (2, 2, 2), (0, 0, 0)),
+                                   ((2, 2, 2), (2, 2, 2), (0, 0, 0)),
+                                   ((2, 3, 3), (1, 2, 2), (1, 1, 1))])
+def test_k4_3d_max_propagates_nan_like_plain_route(cuda, k, s, p, dtype):
+    x = torch.randn(1, 6, 8, 8, 16, device=cuda).to(dtype)
+    x[0, 3, 4, 4, 2] = float("nan")
+    x[0, 0, 0, 7, 9] = float("nan")
+    got = poolk.caffe_pool3d(x, k, s, p, "max")
+    want = pool.padded_pool(x, k, s, p, "max")
+    assert torch.equal(got.isnan(), want.isnan()) and got.isnan().sum() >= 2
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())
+
+
+def test_k4_3d_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    x = torch.randn(2, 4, 8, 8, 8, device=cuda)
+    bad = [x.transpose(2, 3), x.to(torch.int8), x[0], x.cpu(), x.clone().requires_grad_()]
+    for y in bad:
+        with pytest.raises(ValueError, match="caffe_pool3d takes"):
+            poolk.caffe_pool3d(y, (3, 3, 3), (1, 1, 1), (1, 1, 1), "max")
+    with pytest.raises(ValueError, match="mode"):
+        poolk.caffe_pool3d(x, (3, 3, 3), (1, 1, 1), (1, 1, 1), "stochastic")
+    with pytest.raises(ValueError, match="pad >= 0"):
+        poolk.caffe_pool3d(x, (3, 3, 3), (1, 1, 1), (1, -1, 1), "max")
+
+
+def test_bf16_i3d_serving_request_takes_k4_at_every_pool(cuda):
+    """I3D at 16 frames and 224 (the same 14 pool layers, 12 with a window of
+    more than one frame): K4 at every pool, none on the route."""
+    graph = get_model("i3d_rgb_kinetics", batch=1, num_frames=16, crop_size=224)
+    params, state = Program(graph, device="cpu").init(torch.Generator().manual_seed(0),
+                                                      {"data": graph.inputs["data"]})
+    g, p, s = optimize_for_inference(graph, params, state)
+    p = {ln: {k: v.to(cuda) for k, v in d.items()} for ln, d in p.items()}
+    s = {ln: {k: v.to(cuda) for k, v in d.items()} for ln, d in s.items()}
+    server = UInt8Server(Program(g, compute_dtype=torch.bfloat16, device=cuda), p, s,
+                         crop=224, mean=(127.5, 127.5, 127.5))
+    frames, h_off, w_off, mirror = _batch(cuda, 1, 16, 240, 256, 224)
+    k4, k4_3d, route = COUNTS["k4.launches"], COUNTS["k4.launches.3d"], COUNTS["pool.route"]
+    with torch.no_grad():  # as the benchmark's server
+        probs = server(frames, h_off=h_off, w_off=w_off, mirror=mirror)
+    torch.cuda.synchronize()
+    assert torch.isfinite(probs.float()).all()
+    assert (COUNTS["k4.launches"] - k4, COUNTS["k4.launches.3d"] - k4_3d,
+            COUNTS["pool.route"] - route) == (14, 12, 0)
+
+
 @pytest.mark.parametrize("model,fc,pools", [("eco_lite_kinetics", "fc8", 4),
                                             ("eco_full_kinetics", "fc8N", 13)])
 def test_bf16_serving_request_takes_k4_at_every_pool(cuda, model, fc, pools):
@@ -441,12 +553,13 @@ def test_bf16_serving_request_takes_k4_at_every_pool(cuda, model, fc, pools):
     server = UInt8Server(Program(g, compute_dtype=torch.bfloat16, device=cuda), p, s,
                          crop=224, output=fc)
     frames, h_off, w_off, mirror = _batch(cuda, 2, 4, 240, 256, 224)
-    k4, route = COUNTS["k4.launches"], COUNTS["pool.route"]
+    k4, k4_3d, route = COUNTS["k4.launches"], COUNTS["k4.launches.3d"], COUNTS["pool.route"]
     with torch.no_grad():  # as the benchmark's server
         probs = server(frames, h_off=h_off, w_off=w_off, mirror=mirror)
     torch.cuda.synchronize()
     assert torch.isfinite(probs.float()).all()
     assert COUNTS["k4.launches"] - k4 == pools and COUNTS["pool.route"] == route
+    assert COUNTS["k4.launches.3d"] == k4_3d  # every ECO pool is 2D
 
 
 def test_train_step_on_card_matches_cpu(cuda):

@@ -13,7 +13,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from chip_smoke import K4_FRAMES, K4_POOLS
+from chip_smoke import BATCH, I3D_POOLS, K4_FRAMES, K4_POOLS
 from eco_tpu import ops as jops
 from eco_tpu_torch import ops
 from eco_tpu_torch.utils.shapes import caffe_pool_out_dim
@@ -194,43 +194,59 @@ def _fake_card_tensor(shape, dtype=torch.bfloat16):
 
 
 POOL_ROUTES = {
-    # case: (shape, dtype, mode, how, takes K4)
-    "card_max": ((2, 9, 9, 16), torch.bfloat16, "max", None, True),
-    "card_ave_f32": ((2, 9, 9, 16), torch.float32, "ave", None, True),
-    "card_f16_odd_channels": ((2, 9, 9, 5), torch.float16, "max", None, True),
-    "under_a_gradient": ((2, 9, 9, 16), torch.bfloat16, "max", "grad", False),
-    "int8": ((2, 9, 9, 16), torch.int8, "max", None, False),
-    "3d": ((2, 4, 9, 9, 16), torch.bfloat16, "max", None, False),
-    "while_compiling": ((2, 9, 9, 16), torch.bfloat16, "max", "compiling", False),
-    "not_contiguous": ((2, 9, 9, 16), torch.bfloat16, "max", "transposed", False),
-    "cpu": ((2, 9, 9, 16), torch.bfloat16, "max", "cpu", False),
+    # case: (shape, dtype, mode, how, where it goes: "k4" the 2D path, "k4_3d"
+    # the 3D path, "route" the padded route)
+    "card_max": ((2, 9, 9, 16), torch.bfloat16, "max", None, "k4"),
+    "card_ave_f32": ((2, 9, 9, 16), torch.float32, "ave", None, "k4"),
+    "card_f16_odd_channels": ((2, 9, 9, 5), torch.float16, "max", None, "k4"),
+    "under_a_gradient": ((2, 9, 9, 16), torch.bfloat16, "max", "grad", "route"),
+    "int8": ((2, 9, 9, 16), torch.int8, "max", None, "route"),
+    "3d": ((2, 4, 9, 9, 16), torch.bfloat16, "max", None, "k4_3d"),
+    "3d_ave_f32": ((2, 4, 9, 9, 16), torch.float32, "ave", None, "k4_3d"),
+    "3d_one_frame_window": ((2, 4, 9, 9, 16), torch.bfloat16, "max", "frames", "k4"),
+    "3d_under_a_gradient": ((2, 4, 9, 9, 16), torch.bfloat16, "max", "grad", "route"),
+    "3d_int8": ((2, 4, 9, 9, 16), torch.int8, "max", None, "route"),
+    "3d_while_compiling": ((2, 4, 9, 9, 16), torch.bfloat16, "max", "compiling", "route"),
+    "3d_cpu": ((2, 4, 9, 9, 16), torch.bfloat16, "max", "cpu", "route"),
+    "1d": ((2, 9, 16), torch.bfloat16, "max", None, "route"),
+    "while_compiling": ((2, 9, 9, 16), torch.bfloat16, "max", "compiling", "route"),
+    "not_contiguous": ((2, 9, 9, 16), torch.bfloat16, "max", "transposed", "route"),
+    "cpu": ((2, 9, 9, 16), torch.bfloat16, "max", "cpu", "route"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(POOL_ROUTES))
 def test_pool_nd_routes_float_2d_card_pools_to_k4(case, monkeypatch):
-    """On fake card tensors: a float 2D pool of a contiguous tensor on the
-    card with no gradient asked goes to K4; a gradient, an integer or 3D
-    pool, a running trace, a strided view and the CPU keep the route, and
-    the float ones on the card count in COUNTS["pool.route"]."""
+    """On fake card tensors: a float 2D or 3D pool of a contiguous tensor on
+    the card with no gradient asked goes to K4, a 3D window of one frame
+    (stride 1, no pad along T) to its 2D path over the (N * T, H, W, C)
+    view; a gradient, an integer or 1D pool, a running trace, a strided view
+    and the CPU keep the route, and the float ones on the card count in
+    COUNTS["pool.route"].  COUNTS["pool.bytes"] counts each pool once, on
+    the shape it was given."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from eco_tpu_torch.ops import pool, poolk
 
-    shape, dtype, mode, how, to_k4 = POOL_ROUTES[case]
+    shape, dtype, mode, how, to = POOL_ROUTES[case]
+    nsp = len(shape) - 2
+    kernel, stride, pad = (3,) * nsp, (2,) * nsp, (1,) * nsp
+    if how == "frames":
+        kernel, stride, pad = (1, 3, 3), (1, 2, 2), (0, 1, 1)
     calls = []
 
     def recorder(route):
         def call(x, kernel, stride, pad, mode):
-            calls.append((route, tuple(kernel), tuple(stride), tuple(pad), mode))
+            calls.append((route, tuple(x.shape), tuple(kernel), tuple(stride), tuple(pad), mode))
             return x.new_empty(x.shape)
         return call
 
-    monkeypatch.setattr(poolk, "caffe_pool2d", recorder("k4"))
+    monkeypatch.setattr(poolk, "_pool2d", recorder("k4"))
+    monkeypatch.setattr(poolk, "_pool3d", recorder("k4_3d"))
     monkeypatch.setattr(pool, "padded_pool", recorder("route"))
     if how == "compiling":
         monkeypatch.setattr(torch.compiler, "is_compiling", lambda: True)
-    before = COUNTS["pool.route"]
+    before, bytes_before = COUNTS["pool.route"], COUNTS["pool.bytes"]
     with torch.enable_grad(), FakeTensorMode():
         x = (torch.empty(shape, dtype=dtype) if how == "cpu"
              else _fake_card_tensor(shape, dtype))
@@ -238,12 +254,20 @@ def test_pool_nd_routes_float_2d_card_pools_to_k4(case, monkeypatch):
             x.requires_grad_()
         if how == "transposed":
             x = x.transpose(1, 2)
-        assert poolk.takes(x, mode) == to_k4
-        pool.pool_nd(x, kernel=3, stride=2, pad=1, mode=mode)
-    nsp = len(shape) - 2
-    assert calls == [("k4" if to_k4 else "route", (3,) * nsp, (2,) * nsp, (1,) * nsp, mode)]
-    on_card_route = not to_k4 and how != "cpu" and dtype.is_floating_point
+        assert poolk.takes(x, mode) == (to != "route")
+        pool.pool_nd(x, kernel=kernel, stride=stride, pad=pad, mode=mode)
+    if how == "frames":  # each frame a 2D pool
+        want = ("k4", (shape[0] * shape[1], *shape[2:]), kernel[1:], stride[1:], pad[1:], mode)
+    else:
+        want = (to, tuple(x.shape), kernel, stride, pad, mode)
+    assert calls == [want]
+    on_card_route = to == "route" and how != "cpu" and dtype.is_floating_point
     assert COUNTS["pool.route"] == before + on_card_route
+    if how != "compiling":
+        out = math.prod(caffe_pool_out_dim(d, k, s, p)[0]
+                        for d, k, s, p in zip(shape[1:-1], kernel, stride, pad))
+        least = (math.prod(shape) + shape[0] * out * shape[-1]) * dtype.itemsize
+        assert COUNTS["pool.bytes"] == bytes_before + least
 
 
 @pytest.mark.parametrize("itemsize", [2, 4])
@@ -282,6 +306,91 @@ def test_k4_wrapper_rejects_what_the_kernel_does_not_take():
 
     with pytest.raises(ValueError, match="on the card"):
         poolk.caffe_pool2d(torch.zeros(2, 8, 8, 8), (3, 3), (2, 2), (0, 0), "max")
+
+
+I3D_3D_POOLS = sorted(n for n, v in I3D_POOLS.items() if v[1][0] > 1)
+
+
+def test_i3d_pools_are_the_models(monkeypatch):
+    """``I3D_POOLS`` (the card tests' and chip_smoke.py's table) holds every
+    pool of I3D-RGB at 64 x 224 x 224: shape, window, stride, pad, mode and
+    count, as the program runs them (shapes propagated on the meta device)."""
+    from eco_tpu_torch.models import get_model
+    from eco_tpu_torch.runtime import Program, executor
+    from eco_tpu_torch.utils.shapes import normalize_spatial_param
+
+    graph = get_model("i3d_rgb_kinetics", batch=1, num_frames=64, crop_size=224)
+    seen = []
+    pool_nd = executor.ops.pool_nd
+
+    def recorder(x, *, kernel=None, stride=1, pad=0, mode="max", global_pooling=False):
+        seen.append((tuple(x.shape[1:]), *(normalize_spatial_param(a, 3, default=d)
+                                           for a, d in ((kernel, None), (stride, 1), (pad, 0))),
+                     mode))
+        return pool_nd(x, kernel=kernel, stride=stride, pad=pad, mode=mode)
+
+    monkeypatch.setattr(executor.ops, "pool_nd", recorder)
+    Program(graph, device="meta").init(torch.Generator().manual_seed(0),
+                                       {"data": graph.inputs["data"]})
+    want = sorted(v[:5] for v in I3D_POOLS.values() for _ in range(v[5]))
+    assert sorted(seen) == want and len(seen) == 14
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("name", I3D_3D_POOLS)
+def test_k4_plan3d_fills_the_card_within_its_limits(name, itemsize):
+    """K4's 3D tile at every I3D pool with a window of more than one frame,
+    at the benchmark's 8 clips: the tile path (each is one of its windows, in
+    the mode it is instantiated for), within the kernel's thread and
+    shared-memory limits, with the output covered, and two blocks or more
+    for each of the card's 132 SMs."""
+    from eco_tpu_torch.ops import poolk
+
+    (t, h, w, c), k, s, p, mode, _ = I3D_POOLS[name]
+    plan = poolk.plan3d((BATCH, t, h, w, c), k, s, p, mode, itemsize, aligned=True)
+    to, ho, wo = (caffe_pool_out_dim(d, kk, ss, pp)[0] for d, kk, ss, pp in zip((t, h, w), k, s, p))
+    groups = c * itemsize // 16
+    assert (plan.to, plan.ho, plan.wo) == (to, ho, wo)
+    assert plan.tiled and plan.per == poolk._TILE3[(*k, *s, mode)]
+    assert plan.threads == plan.cv * plan.tx * plan.toh <= poolk.THREADS
+    assert plan.threads >= 16
+    band = ((plan.toh - 1) * s[1] + k[1]) * ((plan.tx * plan.per - 1) * s[2] + k[2]) * plan.cv * 16
+    assert plan.smem == poolk.RING * band <= poolk.SMEM3_BYTES
+    assert plan.tiles == (-(-to // plan.tt), -(-ho // plan.toh), -(-wo // (plan.tx * plan.per)),
+                          -(-groups // plan.cv))
+    assert BATCH * math.prod(plan.tiles) >= poolk.MIN_BLOCKS
+
+
+@pytest.mark.parametrize("shape,itemsize,aligned,kernel,stride,pad,mode", [
+    ((2, 4, 8, 12, 5), 2, True, (3, 3, 3), (1, 1, 1), (1, 1, 1), "max"),
+    ((2, 4, 8, 12, 6), 4, True, (3, 3, 3), (1, 1, 1), (1, 1, 1), "max"),
+    ((2, 4, 16, 16, 8), 2, False, (3, 3, 3), (1, 1, 1), (1, 1, 1), "max"),
+    ((2, 4, 16, 16, 8), 2, True, (3, 3, 3), (1, 1, 1), (3, 1, 1), "max"),
+    ((2, 4, 16, 16, 8), 2, True, (1, 3, 3), (2, 2, 2), (0, 1, 1), "max"),
+    ((2, 4, 16, 16, 8), 2, True, (3, 3, 3), (1, 1, 1), (1, 1, 1), "ave"),
+    ((2, 4, 7, 7, 8), 2, True, (2, 7, 7), (1, 1, 1), (0, 0, 0), "max"),
+    ((2, 5, 9, 11, 16), 2, True, (2, 3, 3), (1, 2, 2), (1, 1, 1), "max")])
+def test_k4_plan3d_takes_the_scalar_path_without_whole_aligned_vectors(
+        shape, itemsize, aligned, kernel, stride, pad, mode):
+    """As in 2D; where a window along T lies wholly in the padding (a T pad
+    as wide as the T window, which Caffe refuses); and at every window and
+    mode the tile path is not instantiated for: I3D's windows in the other
+    mode, a window of one frame at stride 2, any other window."""
+    from eco_tpu_torch.ops import poolk
+
+    assert not poolk.plan3d(shape, kernel, stride, pad, mode, itemsize, aligned).tiled
+
+
+@pytest.mark.parametrize("args", [
+    (torch.zeros(2, 4, 8, 8, 8), "max"),
+    (torch.zeros(2, 8, 8, 8, device="meta"), "max"),
+    (torch.zeros(2, 4, 8, 8, 8, dtype=torch.int8, device="meta"), "max")])
+def test_k4_3d_wrapper_rejects_what_the_kernel_does_not_take(args):
+    from eco_tpu_torch.ops import poolk
+
+    x, mode = args
+    with pytest.raises(ValueError, match="caffe_pool3d takes"):
+        poolk.caffe_pool3d(x, (3, 3, 3), (1, 1, 1), (1, 1, 1), mode)
 
 
 @pytest.mark.parametrize("shape", [(2, 7, 7, 8), (2, 4, 7, 7, 8)])
