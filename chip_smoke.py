@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path once on one NVIDIA GPU, and check it.
 
-    python3 chip_smoke.py [--k1-baseline PREPROCESS_CU] [--k3-baseline QCONV_CU]
-                          [--k3-table DIR] [--cli-tables DIR]
+    python3 chip_smoke.py [--k3-table DIR] [--cli-tables DIR]
 
 Phases (every failure raises; the exit code is then non-zero):
 
@@ -13,96 +12,85 @@ Phases (every failure raises; the exit code is then non-zero):
    (8, 16, 256, 340, 3) uint8, random in-range offsets and mirrors, from the
    device and from the host, in bf16, f32 and int8: the outputs must be
    equal (``torch.equal``).  K1 is timed as device time in CUDA graphs in
-   each type beside its bound (its bytes at 3.35 TB/s), and, with
-   ``--k1-baseline``, an earlier K1 source with the previous C interface in
-   turns with it; the wrapper with host offsets (and the previous wrapper's
-   path in front of the baseline) and the plain version on the host's clock.
+   each type beside its bound (its bytes at 3.35 TB/s); the wrapper with
+   host offsets and the plain version on the host's clock.
 3. Full-width ECO-Lite Kinetics (400 classes, 16 segments, 224 crop) at
    batch 8 with seeded random weights, optimized for inference, served by
    the bf16 ``UInt8Server`` from uint8 frames in pinned host memory: one
-   warm-up request and ten timed ones.  Probabilities must be finite,
-   (8, 400) and sum to 1; K1 must have launched once per request, K4 once
-   per pool (four a request), and no float pool may take the padded route.
-   The logits are compared with an f32 run of the same server (TF32 off),
-   and that run with the f32 server on the CPU for two of the videos.
-4. K2, the fused 3x3/s2 max pool, against its plain PyTorch version at the
-   four shapes serving gives it: pool1 (128, 112, 112, 64) and pool2
-   (128, 56, 56, 192), and ECO-Full's inception_3c_pool (128, 28, 28, 320)
-   and inception_4e_pool (128, 14, 14, 608), in bf16 and f32, plain, with
-   ReLU and with a seeded affine: equal (``torch.equal``).  Then K2, its
-   plain version, the ``pool_nd`` route it replaces (pad + ``max_pool2d``)
-   and ``max_pool2d(ceil_mode=True)`` timed in bf16, beside K2's bound.
-   Then K4, the one-pass Caffe pool, against its plain version (the padded
-   route) at every pool of ECO-Lite, ECO-Full and CaffeNet at 32 videos x 16
-   frames (``K4_POOLS``), in f32, bf16 and f16: equal (``torch.equal``);
-   then K4, the route and the library's pool (``max_pool2d`` /
-   ``avg_pool2d``, ``ceil_mode``) timed in bf16 in CUDA graphs beside K4's
-   bound, with K4's host time a call, by pool and summed over an ECO-Lite
-   and an ECO-Full request.
+   warm-up request and three checked ones.  Probabilities must be finite,
+   (8, 400) and sum to 1; K1 must have launched once per request, K2 never,
+   K4 once per pool (four a request), and no float pool may take the padded
+   route.  The logits are compared with an f32 run of the same server (TF32
+   off), and that run with the f32 server on the CPU for two of the videos.
+4. K2, the fused 3x3/s2 max pool, which no route of ``pool_nd`` takes,
+   against its plain PyTorch version at its four shapes: pool1 (128, 112,
+   112, 64) and pool2 (128, 56, 56, 192), and ECO-Full's inception_3c_pool
+   (128, 28, 28, 320) and inception_4e_pool (128, 14, 14, 608), in bf16 and
+   f32, plain, with ReLU and with a seeded affine: equal (``torch.equal``).
+   Then K2, its plain version, K4 (which ``pool_nd`` takes at these pools)
+   and ``max_pool2d(ceil_mode=True)`` timed in bf16 in CUDA graphs, beside
+   K2's bound.  Then K4, the one-pass Caffe pool, against its plain version
+   (the padded route) at every pool of ECO-Lite, ECO-Full and CaffeNet at 32
+   videos x 16 frames (``K4_POOLS``), in f32, bf16 and f16: equal
+   (``torch.equal``); then K4, the route and the library's pool
+   (``max_pool2d`` / ``avg_pool2d``, ``ceil_mode``) timed in bf16 in CUDA
+   graphs beside K4's bound, with K4's host time a call, by pool and summed
+   over an ECO-Lite and an ECO-Full request.
 5. Training at full width: the ECO-Lite Kinetics TRAIN graph (dropout 0.3)
    through ``RawPreprocessProgram`` (K1 in the step) and the ``Trainer``,
    bf16, Nesterov as ``examples/train_synthetic.py``, on one repeated batch
    of uint8 frames from pinned host memory: a warm-up step and ten timed
    ones.  Losses and gradient norms finite, the loss falling, K1 once per
-   step, K2 never (``ECO_PALLAS_POOL`` unset).
+   step, K2 never.
 6. One f32 train step (TF32 off, dropout 0) of the same two videos on the
    card and on the CPU: the parameter updates agree within a stated bound.
-7. The Trainer's test pass over two batches with the trained weights,
-   without and with ``ECO_PALLAS_POOL=1``: K2 launches twice a batch (pool1
-   and pool2) and the test metrics agree within 1e-6 relative.
-8. The bf16 serving requests again, alternately without and with
-   ``ECO_PALLAS_POOL=1`` (K2 twice a request): median request times side by
-   side, and the probabilities with K2 equal those without (max pool is
-   exact).
-9. K3, the int8 convolution, against its plain PyTorch version at the shapes
+7. The Trainer's test pass over two batches with the trained weights:
+   finite metrics, K1 once a batch, K2 never.
+8. K3, the int8 convolution, against its plain PyTorch version at the shapes
    of quantized ECO-Lite at batch 8 (conv1 on K1's int8 output, a 2D 3x3, a
    3D 3x3x3/s2, res5's 3x3x3 and the fc) and of ECO-Full's 2D branch (a
    merged 1x1 and two 3x3/s2 at 14x14), in f32, bf16 and int8 out: equal
    (``torch.equal``).  Then K3, the bf16 cuDNN conv of the same shape and,
    at the 1x1 and fc shapes, ``torch._int_mm`` timed in CUDA graphs, its
    plain version on the host's clock, beside K3's bound.
-10. Full-width ECO-Full Kinetics (``fc8N``) served as in phase 3, with the
-    same checks (K4 13 times a request), then again without and with
-    ``ECO_PALLAS_POOL=1`` (K2 four times a request: pool1, pool2,
-    inception_3c_pool and inception_4e_pool; K4 the other nine).  Then I3D:
-    K1 at its serving shape (8, 64, 256, 340, 3) with mean 127.5, random
-    in-range offsets and mirrors, device and host offsets, equal to its plain
-    version in bf16, f32 and int8; and full-width I3D-RGB Kinetics (64
-    frames, 224 crop, ``Conv3d_0c_1x1``) at batch 8, optimized for inference,
-    served by the bf16 ``UInt8Server`` with mean 127.5: a warm-up request
-    and three timed, K1 once a request, K2 and K3 never, K4 once for each
-    of its 14 3D pools (12 on the 3D path; counted by path in the
-    ``kernels`` line) and none on the padded route, the probabilities and
-    logits checked as in phase 3.  Then K4 against its plain version at
-    every I3D pool (``I3D_POOLS``, 8 clips) in f32, bf16 and f16: equal;
-    then K4, the route and the library's pool (``max_pool3d`` /
-    ``avg_pool3d``) timed in bf16 in CUDA graphs beside K4's bound, by pool
-    and summed over a request.
-11. int8 serving of ECO-Lite and of ECO-Full: ``quantize_for_serving`` of the
+9. Full-width ECO-Full Kinetics (``fc8N``) served as in phase 3, with the
+   same checks (K4 13 times a request).  Then I3D: K1 at its serving shape
+   (8, 64, 256, 340, 3) with mean 127.5, random in-range offsets and
+   mirrors, device and host offsets, equal to its plain version in bf16, f32
+   and int8; and full-width I3D-RGB Kinetics (64 frames, 224 crop,
+   ``Conv3d_0c_1x1``) at batch 8, optimized for inference, served by the
+   bf16 ``UInt8Server`` with mean 127.5: a warm-up request and three
+   checked, K1 once a request, K2 and K3 never, K4 once for each of its 14
+   3D pools (12 on the 3D path; counted by path in the ``kernels`` line)
+   and none on the padded route, the probabilities and logits checked as in
+   phase 3.  Then K4 against its plain version at every I3D pool
+   (``I3D_POOLS``, 8 clips) in f32, bf16 and f16: equal; then K4, the route
+   and the library's pool (``max_pool3d`` / ``avg_pool3d``) timed in bf16 in
+   CUDA graphs beside K4's bound, by pool and summed over a request.
+10. int8 serving of ECO-Lite and of ECO-Full: ``quantize_for_serving`` of the
     optimized graph, calibrated on two batches of K1's f32 clips, served in
     bf16 by ``UInt8Server(int8_input=True)`` (K1 emits int8 into conv1): K1
     once and K3 once per int8 layer a request.  One more request holds every
     K3 call against its plain version on the same operands (``torch.equal``),
     and K3 is timed at every int8 layer of that request in CUDA graphs beside
-    its bound, the bf16 cuDNN conv and ``torch._int_mm`` (and, with
-    ``--k3-baseline``, an earlier K3 source with the previous C interface,
-    in turns), with the request's sums; with ``--k3-table DIR`` the
-    per-layer table goes to ``DIR/k3_layers_<model>.json``.
+    its bound, the bf16 cuDNN conv and ``torch._int_mm``, with the request's
+    sums; with ``--k3-table DIR`` the per-layer table goes to
+    ``DIR/k3_layers_<model>.json``.
     The int8 program in f32 on two videos, layer by layer on the card's
     inputs, card against CPU: int8 tops equal, float tops within a stated
     bound.  End to end, its f32 logits, card against CPU, agree within a
     stated bound, and in argmax where the top-1 margin is clear; its bf16
     logits are held to the float server's.
-12. Online recognition (and, in phase 2, K1 at the online shape (64, 16,
+11. Online recognition (and, in phase 2, K1 at the online shape (64, 16,
     224, 224, 3) -> 224, offsets 0, in bf16, int8 and f32: equal, and
     timed): ``MultiStreamRecognizer`` of 64 streams of seeded uint8 256x340
     frames over the optimized bf16 ECO-Lite on the uint8 plane, a warm-up
     tick then three timed (windows/s, the card's ms a tick in CUDA events,
     host ms); the first tick held stream by stream to a 64-stream f32 tick
-    (logits and labels); one tick of phase 11's int8 ECO-Lite with every K3
+    (logits and labels); one tick of phase 10's int8 ECO-Lite with every K3
     call held to its plain version; one tick of 2 streams in f32, card
     against CPU, and streams 0-1 of the 64-stream f32 tick against it.
-13. The fed train path: the bf16 ECO-Lite TRAIN graph through
+12. The fed train path: the bf16 ECO-Lite TRAIN graph through
     ``RawPreprocessProgram`` and ``Trainer(metrics_lag=1)``, fed by
     ``VideoPipeline(raw=True)`` over a JPEG frame tree written to a temp
     directory (``cv2`` is needed), serially and through
@@ -113,7 +101,7 @@ Phases (every failure raises; the exit code is then non-zero):
     serial (twice) and prefetched runs give equal losses under
     ``cudnn.deterministic``.
 
-14. Phase ``cli``: the multi-scale plane's crop and resize (two batched f32
+13. Phase ``cli``: the multi-scale plane's crop and resize (two batched f32
     products, ``ops/resize.py``) at the train shape, card against CPU on
     sampled windows, equal to K1's f32 crop at a full-size window, and timed;
     rematerialization: one bf16 train step of ECO-Lite and of ECO-Full at
@@ -129,7 +117,7 @@ Phases (every failure raises; the exit code is then non-zero):
     ``quantize`` and ``test`` of the int8 graph with every K3 call held to
     its plain version.  Prints one ``{"cli": ...}`` line.
 
-15. Phase ``tail``: K1 at CaffeNet's input, (32, 1, 256, 256, 3) -> 227 (a
+14. Phase ``tail``: K1 at CaffeNet's input, (32, 1, 256, 256, 3) -> 227 (a
     prime crop), random in-range offsets and mirrors, equal to its plain
     version in bf16, f32 and int8 and timed in CUDA graphs beside its bound;
     every one of the 35 layer types ported last (Deconvolution, LRN, MVN,
@@ -147,7 +135,7 @@ Phases (every failure raises; the exit code is then non-zero):
     and the CLI's ``time --bf16`` of its deploy form.  Prints one
     ``{"tail": ...}`` line.
 
-16. Phase ``parallel``: a world-1 NCCL process group on the card and its
+15. Phase ``parallel``: a world-1 NCCL process group on the card and its
     mesh; full-width bf16 ECO-Lite trained through K1 by the plain
     ``Trainer`` and by ``Trainer(mesh=)`` (data parallel, SyncBN) from one
     state under ``cudnn.deterministic``, a warm-up and ten timed steps each:
@@ -169,7 +157,7 @@ Phases (every failure raises; the exit code is then non-zero):
     same graph and weights on its own cuDNN state: their logits equal
     (``torch.equal``).  Prints one ``{"parallel": ...}`` line.
 
-17. Phase ``examples``: first one int8 forward of ``quantized_serving``'s
+16. Phase ``examples``: first one int8 forward of ``quantized_serving``'s
     graph at the phase's width, in this process, each K3 call equal to its
     plain version.  Then the four workflows of ``eco_tpu_torch.examples``,
     each run as a user runs it, ``python3 -m eco_tpu_torch.examples.<name>
@@ -184,7 +172,7 @@ Phases (every failure raises; the exit code is then non-zero):
     logits artifact equal to the live program's logits, both dynamic batch
     sizes).  Each reports its K1 and K3 launches from its own counters.
     Prints one ``{"examples": ...}`` line.
-18. Phase ``int8_probe``: K3 at the probe's conv, (1536, 28, 28, 96) 3x3 pad
+17. Phase ``int8_probe``: K3 at the probe's conv, (1536, 28, 28, 96) 3x3 pad
     1 -> 96 with the int8-out epilogue, equal to its plain version; one
     request of the probe's batch-96 servers, built in this process, through
     each: K1's bf16 and int8 clips and every K3 call equal to their plain
@@ -202,7 +190,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import ctypes
 import dataclasses
 import io
 import itertools
@@ -268,7 +255,8 @@ SEED = 0
 BATCH, SEGMENTS, HEIGHT, WIDTH, CROP = 8, 16, 256, 340, 224
 MEAN = (104.0, 117.0, 123.0)
 ACT_SCALE = 0.37
-TIMED_REQUESTS = 10
+# serving requests a model: a warm-up (cuDNN autotune) and three checked
+REQUESTS = 4
 # bf16 serving against f32 serving of the same weights and frames: bf16 keeps
 # 8 bits of mantissa, and ~40 layers of rounding leave ~1e-2 relative error
 # in the logits (7.4e-3 at crop 64 on the CPU).
@@ -277,7 +265,7 @@ BF16_LOGITS_REL_L2_BOUND = 3e-2
 # other orders, ~1e-6 relative after ~40 layers.
 F32_CARD_VS_CPU_REL_L2_BOUND = 1e-4
 PROBS_SUM_TOL = 1e-2
-# every max pool that K2 takes on the serving paths (ECO-Full has all four)
+# K2's shapes: the four 3x3/s2 max pools of ECO-Full (ECO-Lite has the first two)
 POOL_SHAPES = {"pool1": (BATCH * SEGMENTS, 112, 112, 64),
                "pool2": (BATCH * SEGMENTS, 56, 56, 192),
                "inception_3c_pool": (BATCH * SEGMENTS, 28, 28, 320),
@@ -309,9 +297,8 @@ K4_PER_REQUEST = {model: sum(v[col] for v in K4_POOLS.values())
 TRAIN_STEPS = 10
 NUM_CLASSES = 400
 # I3D-RGB as the benchmark's i3d_batch8 cell serves it: BATCH clips of 64
-# frames, K1 with mean 127.5 (the input transform folded into the stem); a
-# warm-up request and three timed
-I3D_MODEL, I3D_FC, I3D_FRAMES, I3D_REQUESTS = "i3d_rgb_kinetics", "Conv3d_0c_1x1", 64, 4
+# frames, K1 with mean 127.5 (the input transform folded into the stem)
+I3D_MODEL, I3D_FC, I3D_FRAMES = "i3d_rgb_kinetics", "Conv3d_0c_1x1", 64
 I3D_MEAN = (127.5, 127.5, 127.5)
 # every pool of I3D-RGB at 64 x 224 x 224, which K4 takes in serving: (T, H,
 # W, C) of a clip, kernel, stride and pad (t, h, w), mode, and how often a
@@ -341,7 +328,6 @@ SOLVER = dict(base_lr=0.005, lr_policy="fixed", momentum=0.9, weight_decay=5e-4,
 # gradients by up to 9.0e-3 from its own f64 ones; the card sums in yet
 # other orders.
 F32_UPDATE_REL_L2_BOUND = 5e-2
-TEST_METRIC_REL_TOL = 1e-6
 # K3's checks and timings, at the shapes of quantized full-width ECO-Lite and
 # ECO-Full at batch 8: (input, C_out, kernel, stride, pad); the fc runs as a
 # 1x1 conv, and the 1x1 is inception_4a's three sibling 1x1s merged by
@@ -549,52 +535,24 @@ K1_TYPES = {"bf16": (torch.bfloat16, None), "f32": (torch.float32, None),
             "int8": (torch.int8, ACT_SCALE)}
 
 
-def _k1_call(fn, frames, offsets, out, act_scale, baseline: bool):
-    """One launch of K1 (``baseline``: an earlier K1 with the previous
-    C interface) on packed int32 device offsets, without the wrapper."""
+def _k1_call(fn, frames, offsets, out, act_scale):
+    """One launch of K1 on packed int32 device offsets, without the
+    wrapper."""
     n, s, h, w, _ = frames.shape
     kind = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}[out.dtype]
-    aug = ((offsets[0].data_ptr(), offsets[1].data_ptr(), offsets[2].data_ptr()) if baseline
-           else (offsets.data_ptr(), 0))
-    err = fn(frames.data_ptr(), *aug, out.data_ptr(), n, s, h, w, out.shape[2], *MEAN, kind,
-             float(act_scale or 1.0), torch.cuda.current_stream(frames.device).cuda_stream)
+    err = fn(frames.data_ptr(), offsets.data_ptr(), 0, out.data_ptr(), n, s, h, w, out.shape[2],
+             *MEAN, kind, float(act_scale or 1.0),
+             torch.cuda.current_stream(frames.device).cuda_stream)
     if err:
         raise RuntimeError(f"K1 launch failed: CUDA error {err}")
     return out
 
 
-def _build_k1_baseline(path: str):
-    """An earlier K1 source with the previous C interface (``eco_crop_normalize``
-    on separate int32 h_off, w_off and uint8 mirror arrays), built into the
-    build directory and loaded."""
-    out = _build.BUILD_DIR / "libpreprocess_baseline.so"
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(out), path],
-                   check=True, timeout=600)
-    fn = ctypes.CDLL(str(out)).eco_crop_normalize
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
-                   + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _baseline_wrapper(fn, frames, h_off, w_off, mirror, out_dtype):
-    """The previous wrapper's path in front of the baseline kernel: each of the
-    offsets and the mirror made a device tensor with ``torch.as_tensor``,
-    which for host values is a blocking copy from pageable memory."""
-    dev = frames.device
-    per_video = [torch.as_tensor(v, device=dev).to(dt).contiguous()
-                 for v, dt in ((h_off, torch.int32), (w_off, torch.int32), (mirror, torch.uint8))]
-    out = torch.empty((*frames.shape[:2], CROP, CROP, 3), dtype=out_dtype, device=dev)
-    return _k1_call(fn, frames, per_video, out, None, baseline=True)
-
-
-def check_kernel(dev, card: str, baseline=None) -> dict:
+def check_kernel(dev, card: str) -> dict:
     """K1 against its plain version at the serving shape in bf16, f32 and
     int8 (``torch.equal``).  Then K1 timed as device time in CUDA graphs in
-    each type beside its bound (in turns with ``baseline``, an earlier K1,
-    where given), the plain version and the wrapper on the host's clock,
-    the latter with host offsets as a server gets them."""
+    each type beside its bound, the plain version and the wrapper on the
+    host's clock, the latter with host offsets as a server gets them."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
     frames = torch.randint(0, 256, (BATCH, SEGMENTS, HEIGHT, WIDTH, 3),
                            dtype=torch.uint8, device=dev, generator=gen)
@@ -618,58 +576,31 @@ def check_kernel(dev, card: str, baseline=None) -> dict:
 
     kernel_fn = preprocess._kernel()
     packed = preprocess._pack_aug(h_off.int(), w_off.int(), mirror.int(), BATCH, dev)
-    per_video = (h_off.int(), w_off.int(), mirror.to(torch.uint8))
-    ms, bound, base_ms = {}, {}, {}
+    ms, bound = {}, {}
     for name, (dtype, act_scale) in K1_TYPES.items():
         out = torch.empty((BATCH, SEGMENTS, CROP, CROP, 3), dtype=dtype, device=dev)
-        kernel = lambda: _k1_call(kernel_fn, frames, packed, out, act_scale, baseline=False)
-        fns = [kernel]
-        if baseline is not None:
-            base_out = torch.empty_like(out)
-            old = lambda: _k1_call(baseline, frames, per_video, base_out, act_scale, baseline=True)
-            old()
-            if not torch.equal(base_out, kernel()):
-                raise AssertionError(f"baseline K1 and K1 differ in {name}")
-            fns = [old, kernel]
-        # [baseline,] kernel, kernel[, baseline]
-        first = [_graph_ms(f, K1_ITERS) for f in fns]
-        second = [_graph_ms(f, K1_ITERS) for f in reversed(fns)][::-1]
-        ms[name] = (first[-1] + second[-1]) / 2
-        if baseline is not None:
-            base_ms[name] = (first[0] + second[0]) / 2
+        kernel = lambda: _k1_call(kernel_fn, frames, packed, out, act_scale)
+        first, second = _graph_ms(kernel, K1_ITERS), _graph_ms(kernel, K1_ITERS)
+        ms[name] = (first + second) / 2
         moved = BATCH * SEGMENTS * CROP * CROP * 3 * (1 + out.element_size())
         bound[name], _ = _bound_ms(moved)
         print(f"K1 {name:4s} device time (CUDA graphs, {K1_ITERS} launches a graph): "
-              f"{ms[name]:.4f} ms ({first[-1]:.4f}, {second[-1]:.4f}), bound "
+              f"{ms[name]:.4f} ms ({first:.4f}, {second:.4f}), bound "
               f"{bound[name]:.4f} ms (bytes: {moved / 1e6:.1f} MB at 3.35 TB/s), "
-              f"{bound[name] / ms[name]:.1%} of it"
-              + (f"; baseline kernel {base_ms[name]:.4f} ms ({first[0]:.4f}, {second[0]:.4f}), "
-                 f"{base_ms[name] / ms[name]:.2f}x K1's time" if baseline is not None else "")
-              + f"; {card}")
+              f"{bound[name] / ms[name]:.1%} of it; {card}")
 
     kw = dict(crop=CROP, mean=MEAN, out_dtype=torch.bfloat16)
     wrapper = lambda: preprocess.preprocess_on_device(frames, *host, **kw)
     plain = lambda: preprocess.crop_normalize_reference(frames, h_off, w_off, mirror, **kw)
-    fns = [plain, wrapper]
-    if baseline is not None:
-        fns.append(lambda: _baseline_wrapper(baseline, frames, *host, torch.bfloat16))
-    # on the host's clock, in turns: plain, wrapper[, baseline], [baseline,] wrapper, plain
-    first = [_ms_per_call(f) for f in fns]
-    second = [_ms_per_call(f) for f in reversed(fns)][::-1]
-    host_ms = [(a + b) / 2 for a, b in zip(first, second)]
+    # on the host's clock, in turns: plain, wrapper, wrapper, plain
+    p1, w1, w2, p2 = (_ms_per_call(f) for f in (plain, wrapper, wrapper, plain))
+    host_ms = ((p1 + p2) / 2, (w1 + w2) / 2)
     print(f"K1 bf16 host's clock, 100 calls a block, host int64 offsets and bool mirror: "
-          f"wrapper {host_ms[1]:.4f} ms a call ({first[1]:.4f}, {second[1]:.4f})"
-          + (f", the previous wrapper and baseline kernel {host_ms[2]:.4f} ms "
-             f"({first[2]:.4f}, {second[2]:.4f})" if baseline is not None else "")
-          + f"; plain {host_ms[0]:.4f} ms ({first[0]:.4f}, {second[0]:.4f}); no single "
-          f"PyTorch call computes it")
-    rec = {"max_abs_err": max_err, "ms": ms["bf16"], "plain_ms": host_ms[0],
-           "bound_ms": bound["bf16"], "bound_by": "bytes", "library_ms": None,
-           "ms_by_dtype": ms, "bound_ms_by_dtype": bound, "host_ms_per_call": host_ms[1]}
-    if baseline is not None:
-        rec["baseline_ms_by_dtype"] = base_ms
-        rec["baseline_host_ms_per_call"] = host_ms[2]
-    return rec
+          f"wrapper {host_ms[1]:.4f} ms a call ({w1:.4f}, {w2:.4f}); plain {host_ms[0]:.4f} "
+          f"ms ({p1:.4f}, {p2:.4f}); no single PyTorch call computes it")
+    return {"max_abs_err": max_err, "ms": ms["bf16"], "plain_ms": host_ms[0],
+            "bound_ms": bound["bf16"], "bound_by": "bytes", "library_ms": None,
+            "ms_by_dtype": ms, "bound_ms_by_dtype": bound, "host_ms_per_call": host_ms[1]}
 
 
 def _requests(count: int, segments: int = SEGMENTS):
@@ -690,26 +621,6 @@ def _requests(count: int, segments: int = SEGMENTS):
             )
         reqs.append((frames, aug))
     return reqs
-
-
-def _timed_requests(server, reqs):
-    """One warm-up request (cuDNN autotune), then the others timed with CUDA
-    events; returns the outputs, the timed requests' ms in order, videos/s
-    over them, and the warm-up's seconds."""
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(len(reqs))]
-    t0 = time.perf_counter()
-    frames, aug = reqs[0]
-    outs = [server(frames, **aug)]
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    events[0].record()
-    for i, (frames, aug) in enumerate(reqs[1:], start=1):
-        outs.append(server(frames, **aug))
-        events[i].record()
-    torch.cuda.synchronize()
-    per_req = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
-    videos_s = (len(reqs) - 1) * BATCH / (events[0].elapsed_time(events[-1]) / 1e3)
-    return outs, per_req, videos_s, warm_s
 
 
 def _check_probs(outs):
@@ -750,8 +661,8 @@ def _f32_logits_card_and_cpu(dev, graph, params, state, request, fc: str, mean=M
 
 def serve_float(dev, card: str, model: str, fc: str, reqs):
     """Full-width bf16 serving of ``model``, optimized for inference; returns
-    the server, its graph, params and state, K1's and K4's launches and the
-    bf16 logits of the second request."""
+    the server, its graph, params and state, K1's, K2's and K4's launches
+    and the bf16 logits of the second request."""
     t0 = time.perf_counter()
     graph = get_model(model, batch=BATCH, num_segments=SEGMENTS, crop_size=CROP)
     params, state = Program(graph, device=dev).init(
@@ -765,7 +676,7 @@ def serve_float(dev, card: str, model: str, fc: str, reqs):
     torch.backends.cudnn.benchmark = True
     torch.cuda.reset_peak_memory_stats(dev)
     _reset_counts()
-    outs, per_req, videos_s, warm_s = _timed_requests(server, reqs)
+    outs = [server(frames, **aug) for frames, aug in reqs]
     launches = _counts()
     if launches != (len(reqs), 0, 0):
         raise AssertionError(f"{model} serving launched K1, K2, K3 {launches} times "
@@ -777,11 +688,8 @@ def serve_float(dev, card: str, model: str, fc: str, reqs):
     print(f"{model} serving: K4 {k4} launches, {k4 / len(reqs):g} a request; "
           f"the pool route none")
     print(f"{model} serving: {len(reqs)} requests ({BATCH} videos each), K1 launches "
-          f"{launches[0]}; warm-up {warm_s:.2f} s; timed requests (ms, in order) "
-          f"{[round(t, 3) for t in per_req]}, median "
-          f"{statistics.median(per_req):.3f} ms; {videos_s:.1f} videos/s bf16, "
-          f"host->device copy included; peak memory "
-          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; {card}")
+          f"{launches[0]}; peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
+          f"{card}")
     _check_probs(outs)
 
     logits32, logits_cpu = _f32_logits_card_and_cpu(dev, g_opt, p_opt, s_opt, reqs[1], fc)
@@ -800,21 +708,7 @@ def serve_float(dev, card: str, model: str, fc: str, reqs):
           f"(bound {F32_CARD_VS_CPU_REL_L2_BOUND})")
     if not rel_cpu <= F32_CARD_VS_CPU_REL_L2_BOUND:
         raise AssertionError(f"{model} f32 logits on the card off the CPU's by rel L2 {rel_cpu}")
-    return server, (g_opt, p_opt, s_opt), launches[0], k4, logits16
-
-
-@contextlib.contextmanager
-def _pallas_pool(on: bool):
-    """``ECO_PALLAS_POOL=1`` (K2 on the pool route) inside, unset otherwise."""
-    old = os.environ.pop("ECO_PALLAS_POOL", None)
-    if on:
-        os.environ["ECO_PALLAS_POOL"] = "1"
-    try:
-        yield
-    finally:
-        os.environ.pop("ECO_PALLAS_POOL", None)
-        if old is not None:
-            os.environ["ECO_PALLAS_POOL"] = old
+    return server, (g_opt, p_opt, s_opt), launches[0], launches[1], k4, logits16
 
 
 def _reset_counts():
@@ -887,11 +781,11 @@ def serve_i3d(dev, card: str) -> dict:
     print(f"{I3D_MODEL} setup: {len(server.program.exec_layers)} layers after optimize "
           f"({pools} pools), {time.perf_counter() - t0:.1f} s")
 
-    reqs = _requests(I3D_REQUESTS, I3D_FRAMES)
+    reqs = _requests(REQUESTS, I3D_FRAMES)
     torch.backends.cudnn.benchmark = True
     torch.cuda.reset_peak_memory_stats(dev)
     _reset_counts()
-    outs, per_req, videos_s, warm_s = _timed_requests(server, reqs)
+    outs = [server(frames, **aug) for frames, aug in reqs]
     k1, k2, k3 = _counts()
     k4, route = _pool_counts()
     k4_3d, pool_bytes = COUNTS["k4.launches.3d"], COUNTS["pool.bytes"]
@@ -903,10 +797,7 @@ def serve_i3d(dev, card: str) -> dict:
     print(f"{I3D_MODEL} serving: {len(reqs)} requests ({BATCH} clips of {I3D_FRAMES} frames "
           f"each), K1 launches {k1}, K2 / K3 none, K4 {k4} ({k4 // len(reqs)} a request, "
           f"{k4_3d // len(reqs)} of them 3D), the pool route {route}, pool bytes "
-          f"{pool_bytes // len(reqs):,} a request; "
-          f"warm-up {warm_s:.2f} s; timed requests (ms, in order) "
-          f"{[round(t, 3) for t in per_req]}, median {statistics.median(per_req):.3f} ms; "
-          f"{videos_s:.1f} clips/s bf16, host->device copy included; peak memory "
+          f"{pool_bytes // len(reqs):,} a request; peak memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; {card}")
     _check_probs(outs)
 
@@ -925,13 +816,15 @@ def serve_i3d(dev, card: str) -> dict:
     if not rel_cpu <= F32_CARD_VS_CPU_REL_L2_BOUND:
         raise AssertionError(f"{I3D_MODEL} f32 logits on the card off the CPU's by rel L2 "
                              f"{rel_cpu}")
-    return {"k1": k1, "k4": k4, "k4_3d": k4_3d, "route": route, "requests": len(reqs)}
+    return {"k1": k1, "k2": k2, "k4": k4, "k4_3d": k4_3d, "route": route}
 
 
 def check_pool_kernel(dev) -> dict:
-    """K2 against its plain version at POOL_SHAPES; returns its largest
-    error and the times of K2, its plain version and the ``pool_nd`` route,
-    summed over the shapes."""
+    """K2 against its plain version at POOL_SHAPES; then K2, its plain
+    version, K4 (which ``pool_nd`` takes at these pools) and
+    ``max_pool2d(ceil_mode=True)`` timed in bf16 in CUDA graphs beside K2's
+    bound.  Returns K2's largest error and the times summed over the
+    shapes."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
     max_err = 0.0
     times = {}
@@ -959,33 +852,36 @@ def check_pool_kernel(dev) -> dict:
         del base
         kernel = lambda: poolfuse.fused_maxpool_3x3s2(y)
         plain = lambda: poolfuse.fused_maxpool_3x3s2_reference(y)
-        route = lambda: pool.pool_nd(y, kernel=3, stride=2, mode="max")
+        k4 = lambda: poolk.caffe_pool(y, (3, 3), (2, 2), (0, 0), "max")
         # ATen's pool on the channels-last NCHW view: with pad 0 and even H
         # and W, ceil mode is Caffe's rule
         library = lambda: torch.nn.functional.max_pool2d(y.permute(0, 3, 1, 2), 3, 2,
                                                          ceil_mode=True)
-        if not torch.equal(library().permute(0, 2, 3, 1), poolfuse.fused_maxpool_3x3s2(y)):
-            raise AssertionError(f"max_pool2d(ceil_mode=True) is not K2's function at {name}")
-        # plain, route, library, kernel, kernel, library, route, plain
-        p1, r1, l1, k1, k2, l2, r2, p2 = (_ms_per_call(f) for f in
-                                          (plain, route, library, kernel, kernel, library,
-                                           route, plain))
-        t = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "pool_nd_route_ms": (r1 + r2) / 2,
+        want = kernel()
+        if not (torch.equal(library().permute(0, 2, 3, 1), want) and torch.equal(k4(), want)):
+            raise AssertionError(f"max_pool2d(ceil_mode=True) or K4 is not K2's function at "
+                                 f"{name}")
+        del want
+        # plain, K4, library, kernel, kernel, library, K4, plain
+        p1, c1, l1, k1, k2, l2, c2, p2 = (_graph_ms(f, K4_GRAPH_CALLS) for f in
+                                          (plain, k4, library, kernel, kernel, library, k4,
+                                           plain))
+        t = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "k4_ms": (c1 + c2) / 2,
              "library_ms": (l1 + l2) / 2}
         n, h, w, c = shape
         moved = n * h * w * c * 2 + n * (h // 2) * (w // 2) * c * 2  # bf16 read + write
         t["bound_ms"], _ = _bound_ms(moved)
-        print(f"K2 bf16 {name} {shape}, 100 launches per block: kernel {t['ms']:.4f} ms "
-              f"({k1:.4f}, {k2:.4f}), plain {t['plain_ms']:.4f} ms ({p1:.4f}, {p2:.4f}), "
-              f"pool_nd route (pad + max_pool2d) {t['pool_nd_route_ms']:.4f} ms "
-              f"({r1:.4f}, {r2:.4f}); kernel moves {moved / 1e6:.1f} MB -> "
+        print(f"K2 bf16 {name} {shape}, CUDA graphs of {K4_GRAPH_CALLS} calls: kernel "
+              f"{t['ms']:.4f} ms ({k1:.4f}, {k2:.4f}), plain {t['plain_ms']:.4f} ms "
+              f"({p1:.4f}, {p2:.4f}), K4 (caffe_pool) {t['k4_ms']:.4f} ms ({c1:.4f}, "
+              f"{c2:.4f}); kernel moves {moved / 1e6:.1f} MB -> "
               f"{moved / t['ms'] / 1e6:.1f} GB/s, plain {moved / t['plain_ms'] / 1e6:.1f} "
-              f"GB/s, route {moved / t['pool_nd_route_ms'] / 1e6:.1f} GB/s of 3350; "
+              f"GB/s, K4 {moved / t['k4_ms'] / 1e6:.1f} GB/s of 3350; "
               f"max_pool2d(ceil_mode=True) {t['library_ms']:.4f} ms ({l1:.4f}, {l2:.4f}); "
               f"bound {t['bound_ms']:.4f} ms (bytes), kernel at "
-              f"{t['bound_ms'] / t['ms']:.1%} of it")
+              f"{t['bound_ms'] / t['ms']:.1%} of it, K4 at {t['bound_ms'] / t['k4_ms']:.1%}")
         times[name] = t
-    keys = ("ms", "plain_ms", "pool_nd_route_ms", "library_ms", "bound_ms")
+    keys = ("ms", "plain_ms", "k4_ms", "library_ms", "bound_ms")
     total = {k: sum(t[k] for t in times.values()) for k in keys}
     return {"max_abs_err": max_err, **total, "bound_by": "bytes", "by_shape": times}
 
@@ -1006,7 +902,7 @@ def check_pool4_kernel(dev, card: str) -> dict:
         base = torch.randn((K4_FRAMES, h, w, c), device=dev, generator=gen)
         for dtype in (torch.float32, torch.bfloat16, torch.float16):
             y = base.to(dtype)
-            got = poolk.caffe_pool2d(y, *geom, mode)
+            got = poolk.caffe_pool(y, *geom, mode)
             want = pool.padded_pool(y, *geom, mode)
             torch.cuda.synchronize()
             if not torch.equal(got, want):
@@ -1021,7 +917,7 @@ def check_pool4_kernel(dev, card: str) -> dict:
         else:
             library = lambda: torch.nn.functional.avg_pool2d(
                 nchw, k, s, p, ceil_mode=True, count_include_pad=True)
-        kernel = lambda: poolk.caffe_pool2d(y, *geom, mode)
+        kernel = lambda: poolk.caffe_pool(y, *geom, mode)
         plain = lambda: pool.padded_pool(y, *geom, mode)
         # plain, library, kernel, kernel, library, plain
         p1, l1, k1, k2, l2, p2 = (_graph_ms(f, K4_GRAPH_CALLS) for f in
@@ -1070,7 +966,7 @@ def check_pool4_i3d(dev, card: str) -> dict:
         base = torch.randn((BATCH, t, h, w, c), device=dev, generator=gen)
         for dtype in (torch.float32, torch.bfloat16, torch.float16):
             y = base.to(dtype)
-            got = poolk.caffe_pool3d(y, k, s, p, mode)
+            got = poolk.caffe_pool(y, k, s, p, mode)
             want = pool.padded_pool(y, k, s, p, mode)
             torch.cuda.synchronize()
             if not torch.equal(got, want):
@@ -1085,7 +981,7 @@ def check_pool4_i3d(dev, card: str) -> dict:
         else:
             library = lambda: torch.nn.functional.avg_pool3d(
                 ncdhw, k, s, p, ceil_mode=True, count_include_pad=True)
-        kernel = lambda: poolk.caffe_pool3d(y, k, s, p, mode)
+        kernel = lambda: poolk.caffe_pool(y, k, s, p, mode)
         plain = lambda: pool.padded_pool(y, k, s, p, mode)
         # plain, library, kernel, kernel, library, plain
         p1, l1, k1, k2, l2, p2 = (_graph_ms(f, K4_GRAPH_CALLS) for f in
@@ -1232,50 +1128,12 @@ def check_qconv_kernel(dev) -> dict:
             "bound_by": by.pop() if len(by) == 1 else "operations", "by_shape": times}
 
 
-def _build_k3_baseline(path: str):
-    """An earlier K3 source with the previous C interface (``eco_qconv`` without
-    the plan arguments), built into the build directory and loaded."""
-    out = _build.BUILD_DIR / "libqconv_baseline.so"
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(out), path],
-                   check=True, timeout=600)
-    fn = ctypes.CDLL(str(out)).eco_qconv
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 22
-                   + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _baseline_call(fn, x, w, scale_vec, b, out_dtype, out_scale, kw):
-    """One launch of the baseline kernel on a K3 call's operands."""
-    nsp = x.ndim - 2
-    geo = [normalize_spatial_param(kw.get(k, d), nsp, default=d)
-           for k, d in (("stride", 1), ("pad", 0), ("dilation", 1))]
-    n, *spatial, c_in = x.shape
-    kernel = tuple(w.shape[2:])
-    out_sp = [(i + 2 * p - dl * (k - 1) - 1) // s + 1
-              for i, k, s, p, dl in zip(spatial, kernel, *geo)]
-    kind = torch.int8 if out_scale is not None else out_dtype
-    out = torch.empty((n, *out_sp, w.shape[0]), dtype=kind, device=x.device)
-    pad3 = lambda vals, fill: [fill] * (3 - nsp) + [int(v) for v in vals]
-    err = fn(x.data_ptr(), w.movedim(1, -1).data_ptr(), scale_vec.data_ptr(),
-             b.data_ptr() if b is not None else None, out.data_ptr(), n, *pad3(spatial, 1),
-             c_in, w.shape[0], kw.get("groups", 1), *pad3(kernel, 1), *pad3(geo[0], 1),
-             *pad3(geo[1], 0), *pad3(geo[2], 1), *pad3(out_sp, 1),
-             {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}[kind],
-             float(out_scale if out_scale is not None else 1.0),
-             torch.cuda.current_stream(x.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"baseline K3 launch failed: CUDA error {err}")
-    return out
-
-
-def k3_request_layers(server, request, model: str, card: str, baseline=None,
-                      cache=None, table_dir=None) -> dict:
+def k3_request_layers(server, request, model: str, card: str, cache=None,
+                      table_dir=None) -> dict:
     """K3 at every int8 layer of one request of ``server``: the calls are
     recorded on their real operands, then each distinct geometry is timed
-    (blocks: [baseline,] cuDNN bf16, [_int_mm,] K3, K3, [_int_mm,] cuDNN,
-    [baseline]), and the request's sums reported beside K3's bound.
+    (blocks: cuDNN bf16, [_int_mm,] K3, K3, [_int_mm,] cuDNN), and the
+    request's sums reported beside K3's bound.
     ``cache`` shares timings between models by geometry; with ``table_dir``
     the per-layer table is written there as JSON."""
     calls = []
@@ -1305,22 +1163,15 @@ def k3_request_layers(server, request, model: str, card: str, baseline=None,
         if key not in cache:
             fn = lambda: kernel(x, w, sv, b, **kw)
             out = fn()
-            if baseline is not None and not torch.equal(
-                    out, _baseline_call(baseline, x, w, sv, b, kw.get("out_dtype"),
-                                        kw.get("out_scale"), kw)):
-                raise AssertionError(f"{model} {name}: baseline K3 and K3 differ")
-            fns = ([lambda: _baseline_call(baseline, x, w, sv, b, kw.get("out_dtype"),
-                                           kw.get("out_scale"), kw)] if baseline else [])
             int_mm = _int_mm(x, w, kw)
-            fns += [_cudnn_bf16(x, w, b, kw)] + ([int_mm] if int_mm else []) + [fn]
+            fns = [_cudnn_bf16(x, w, b, kw)] + ([int_mm] if int_mm else []) + [fn]
             first = [_graph_ms(f, LAYER_ITERS) for f in fns]
             second = [_graph_ms(f, LAYER_ITERS) for f in reversed(fns)][::-1]
             avg = [(u + v) / 2 for u, v in zip(first, second)]
             ops, moved = _k3_work(x, w, out)
             bound, by = _bound_ms(moved, ops)
             cache[key] = {
-                "ms": avg[-1], "baseline_ms": avg[0] if baseline else None,
-                "cudnn_bf16_ms": avg[1 if baseline else 0],
+                "ms": avg[-1], "cudnn_bf16_ms": avg[0],
                 "int_mm_ms": avg[-2] if int_mm else None,
                 "bound_ms": bound, "bound_by": by, "gop": ops / 1e9,
                 "x": tuple(x.shape), "w": tuple(w.shape), "out": str(out.dtype),
@@ -1329,23 +1180,16 @@ def k3_request_layers(server, request, model: str, card: str, baseline=None,
             }
         rows.append({"layer": name, **cache[key]})
     sums = {k: sum(r[k] for r in rows) for k in ("ms", "cudnn_bf16_ms", "bound_ms")}
-    if baseline is not None:
-        sums["baseline_ms"] = sum(r["baseline_ms"] for r in rows)
     for r in rows:
         print(f"K3 {model} {r['layer']} {r['x']} x {r['w']} -> {r['out']} ({r['plan']}): "
               f"{r['ms']:.4f} ms, {r['gop'] / r['ms']:.1f} TOP/s, {r['bound_ms'] / r['ms']:.1%} "
               f"of bound {r['bound_ms']:.4f} ms ({r['bound_by']}); cuDNN bf16 "
               f"{r['cudnn_bf16_ms']:.4f} ms"
-              + (f"; _int_mm {r['int_mm_ms']:.4f} ms" if r["int_mm_ms"] is not None else "")
-              + (f"; baseline kernel {r['baseline_ms']:.4f} ms" if r["baseline_ms"] is not None
-                 else ""))
+              + (f"; _int_mm {r['int_mm_ms']:.4f} ms" if r["int_mm_ms"] is not None else ""))
     print(f"K3 {model} one int8 request, {len(rows)} calls, device time (CUDA graphs): K3 "
           f"{sums['ms']:.4f} ms, bound "
           f"{sums['bound_ms']:.4f} ms ({sums['bound_ms'] / sums['ms']:.1%}), cuDNN bf16 "
-          f"{sums['cudnn_bf16_ms']:.4f} ms"
-          + (f", baseline kernel {sums['baseline_ms']:.4f} ms "
-             f"({sums['baseline_ms'] / sums['ms']:.2f}x K3's time)" if baseline else "")
-          + f"; {LAYER_ITERS} launches a graph; {card}")
+          f"{sums['cudnn_bf16_ms']:.4f} ms; {LAYER_ITERS} launches a graph; {card}")
     if table_dir:
         os.makedirs(table_dir, exist_ok=True)
         with open(os.path.join(table_dir, f"k3_layers_{model}.json"), "w") as f:
@@ -1371,8 +1215,8 @@ def _train_batch(seed: int, videos: int = BATCH):
 
 def train(dev, card: str):
     """Full-width ECO-Lite training through the Trainer on one repeated
-    batch; returns the trainer, the trained state, the batch and K1's
-    launch count."""
+    batch; returns the trainer, the trained state, the batch and K1's and
+    K2's launch counts."""
     t0 = time.perf_counter()
     graph = build_eco_lite(NUM_CLASSES, SEGMENTS, crop_size=CROP, with_loss=True, batch=BATCH)
     train_prog = RawPreprocessProgram(
@@ -1427,7 +1271,7 @@ def train(dev, card: str):
         raise AssertionError(f"loss did not fall: {losses[0]} -> {losses[-1]}")
     if k1 != 1 + TRAIN_STEPS or k2 != 0 or k3 != 0:
         raise AssertionError(f"training launched K1 {k1}, K2 {k2} and K3 {k3} times")
-    return trainer, ts, batch, k1
+    return trainer, ts, batch, k1, k2
 
 
 def f32_step_card_vs_cpu(dev, batch):
@@ -1459,71 +1303,18 @@ def f32_step_card_vs_cpu(dev, batch):
     return rel
 
 
-def test_pass(trainer, ts, batches) -> int:
-    """The Trainer's test pass without and with K2; returns K2's launches."""
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    results = {}
-    for on in (False, True):
-        with _pallas_pool(on):
-            _reset_counts()
-            results[on] = trainer.test(ts, batches)
-            k1, k2, k3 = _counts()
-        print(f"test pass ECO_PALLAS_POOL={int(on)}: {len(batches)} batches of {BATCH} "
-              f"videos, {results[on]}; K1 launches {k1}, K2 launches {k2}")
-        if k1 != len(batches) or k2 != (2 * len(batches) if on else 0) or k3:
-            raise AssertionError(f"test pass launched K1 {k1} and K2 {k2} times")
-    torch.backends.cudnn.deterministic = deterministic
-    for key in ("top1", "top5", "loss"):
-        a, b = results[False][key], results[True][key]
-        if not abs(a - b) <= TEST_METRIC_REL_TOL * max(abs(a), abs(b)):
-            raise AssertionError(f"test {key} {a} without K2, {b} with it")
-    print(f"test metrics with K2 equal those without within {TEST_METRIC_REL_TOL} relative")
-    return k2
-
-
-def serve_with_pool_kernel(server, reqs, card: str, model: str,
-                           k2_per_request: int) -> tuple[int, int, int]:
-    """The serving requests in blocks without, with, with and without K2;
-    returns K1's and K2's launches in the blocks with it, and K4's in all
-    four (K4 takes every pool that K2 does not)."""
-    times = {False: [], True: []}
-    launches = [0, 0]
-    k4_launches = 0
-    outs = {}
-    for on in (False, True, True, False):
-        with _pallas_pool(on):
-            events = [torch.cuda.Event(enable_timing=True) for _ in range(len(reqs) + 1)]
-            _reset_counts()
-            events[0].record()
-            for i, (frames, aug) in enumerate(reqs, start=1):
-                outs[on] = server(frames, **aug)
-                events[i].record()
-            k1, k2, k3 = _counts()
-            k4, route = _pool_counts()
-        times[on] += [a.elapsed_time(b) for a, b in zip(events, events[1:])]
-        if k1 != len(reqs) or k2 != (k2_per_request * len(reqs) if on else 0) or k3:
-            raise AssertionError(f"{model} serving launched K1 {k1}, K2 {k2} and K3 {k3} times")
-        if k4 != (K4_PER_REQUEST[model] - (k2_per_request if on else 0)) * len(reqs) or route:
-            raise AssertionError(f"{model} serving launched K4 {k4} times and took the pool "
-                                 f"route {route} times, K2 {'on' if on else 'off'}")
-        k4_launches += k4
-        if on:
-            launches = [launches[0] + k1, launches[1] + k2]
-    probs = outs[True].float()
-    if not torch.isfinite(probs).all() or (probs.sum(-1) - 1).abs().max() > PROBS_SUM_TOL:
-        raise AssertionError(f"{model} serving with K2 gave bad probabilities")
-    # max pool is exact: K2 and the route it replaces give the same bits
-    if not torch.equal(outs[True], outs[False]):
-        raise AssertionError(f"{model} probs with K2 differ from those without")
-    print(f"{model} serving with K2 (ECO_PALLAS_POOL=1): median "
-          f"{statistics.median(times[True]):.3f} ms per request of {BATCH} videos "
-          f"({len(times[True])} requests) against {statistics.median(times[False]):.3f} ms "
-          f"without ({len(times[False])}), blocks off/on/on/off; K2 launches "
-          f"{launches[1]} = {k2_per_request} per request, K4 the other "
-          f"{K4_PER_REQUEST[model] - k2_per_request}; last request's probs equal "
-          f"without K2: True; {card}")
-    return launches[0], launches[1], k4_launches
+def test_pass(trainer, ts, batches) -> tuple:
+    """The Trainer's test pass: finite metrics, K1 once a batch, K2 and K3
+    never.  Returns K1's and K2's launches."""
+    _reset_counts()
+    results = trainer.test(ts, batches)
+    k1, k2, k3 = _counts()
+    print(f"test pass: {len(batches)} batches of {BATCH} videos, {results}; K1 launches {k1}")
+    if k1 != len(batches) or k2 or k3:
+        raise AssertionError(f"test pass launched K1 {k1}, K2 {k2} and K3 {k3} times")
+    if not all(math.isfinite(results[k]) for k in ("top1", "top5", "loss")):
+        raise AssertionError(f"non-finite test metrics {results}")
+    return k1, k2
 
 
 def _calibration_batches(dev):
@@ -1626,16 +1417,14 @@ def serve_int8(dev, card: str, model: str, fc: str, float_side, reqs):
           f"({CALIB_BATCHES} calibration batches) {time.perf_counter() - t0:.1f} s")
 
     _reset_counts()
-    outs, per_req, videos_s, warm_s = _timed_requests(server, reqs)
+    outs = [server(frames, **aug) for frames, aug in reqs]
     launches = _counts()
     if launches != (len(reqs), 0, n_q * len(reqs)):
         raise AssertionError(f"{model} int8 serving launched K1, K2, K3 {launches} times for "
                              f"{len(reqs)} requests of {n_q} int8 layers")
     print(f"{model} int8 serving: {len(reqs)} requests ({BATCH} videos each), K1 (int8 "
           f"out) launches {launches[0]}, K3 launches {launches[2]} = {n_q} per request; "
-          f"warm-up {warm_s:.2f} s; timed requests (ms, in order) "
-          f"{[round(t, 3) for t in per_req]}, median {statistics.median(per_req):.3f} ms; "
-          f"{videos_s:.1f} videos/s int8 + bf16, host->device copy included; {card}")
+          f"{card}")
     _check_probs(outs)
     with _k3_held() as checked:
         frames, aug = reqs[1]
@@ -1702,7 +1491,7 @@ def check_k1_online(dev, card: str) -> dict:
         max_err = max(max_err, err)
         out = torch.empty_like(got)
         del got, want
-        call = lambda: _k1_call(kernel_fn, frames, packed, out, act_scale, baseline=False)
+        call = lambda: _k1_call(kernel_fn, frames, packed, out, act_scale)
         first, second = _graph_ms(call, K1_ITERS // 4), _graph_ms(call, K1_ITERS // 4)
         ms[name] = (first + second) / 2
         moved = frames.numel() * (1 + out.element_size())
@@ -2364,7 +2153,7 @@ def check_k1_caffenet(dev, card: str) -> dict:
                 raise AssertionError(f"K1 at crop {crop} disagrees with its plain version in "
                                      f"{name}, {where} offsets")
         out = torch.empty_like(want)
-        kernel = lambda: _k1_call(preprocess._kernel(), frames, packed, out, act_scale, False)
+        kernel = lambda: _k1_call(preprocess._kernel(), frames, packed, out, act_scale)
         ms[name] = (_graph_ms(kernel, K1_ITERS) + _graph_ms(kernel, K1_ITERS)) / 2
         bound[name], _ = _bound_ms(n * crop * crop * 3 + n * crop * crop * 3 * out.element_size())
         print(f"K1 {name:4s} at ({n}, 1, {size}, {size}, 3) -> {crop}: equal to its plain "
@@ -3079,8 +2868,14 @@ def _artifacts(dev, card: str, reqs, lite, int8_lite) -> dict:
         server = UInt8Server(Program(graph, device=dev), params, state, crop=CROP, mean=MEAN,
                              output="fc8")
         torch.backends.cudnn.benchmark = True
-        outs, per_req, _, _ = _timed_requests(server, [reqs[1]] * (1 + ARTIFACT_REQUESTS))
-        want = outs[-1].float().cpu()
+        per_req = []
+        for _ in range(1 + ARTIFACT_REQUESTS):  # as the loader times its artifact
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = server(frames, **aug)
+            torch.cuda.synchronize()
+            per_req.append((time.perf_counter() - t0) * 1e3)
+        want, per_req = want.float().cpu(), per_req[1:]
         want8 = UInt8Server(qprog, qp, qs, crop=CROP, mean=MEAN, output="fc8")(frames, **aug)
         faulty = {
             "mirror_flipped": server(frames, **{**aug, "mirror": ~aug["mirror"]}),
@@ -3383,20 +3178,13 @@ def int8_probe_phase(dev, card: str) -> dict:
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--k3-baseline", metavar="QCONV_CU",
-                        help="an earlier qconv.cu (the previous C interface, without the "
-                             "plan arguments) to time in turns with K3 at every int8 layer")
     parser.add_argument("--k3-table", metavar="DIR",
                         help="write K3's per-layer table of each int8 request to DIR as JSON")
-    parser.add_argument("--k1-baseline", metavar="PREPROCESS_CU",
-                        help="an earlier preprocess.cu (the previous C interface, separate "
-                             "offset arrays) to time in turns with K1")
     parser.add_argument("--cli-tables", metavar="DIR",
                         help="write the cli phase's per-layer time tables to DIR")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this check runs only on the GPU")
-    os.environ.pop("ECO_PALLAS_POOL", None)
     dev = torch.device("cuda", 0)
     card = _card()
     print(card)
@@ -3410,47 +3198,37 @@ def main() -> None:
     poolk.build_kernel()
     print(f"K1 + K2 + K3 + K4 build (four nvcc together) and load: "
           f"{time.perf_counter() - t0:.2f} s")
-    baseline = _build_k3_baseline(args.k3_baseline) if args.k3_baseline else None
-    k1_baseline = _build_k1_baseline(args.k1_baseline) if args.k1_baseline else None
 
-    checked = check_kernel(dev, card, k1_baseline)
+    checked = check_kernel(dev, card)
     checked.update(check_k1_online(dev, card))
-    reqs = _requests(1 + TIMED_REQUESTS)
-    # the serving blocks with K2 run each request twice without it and twice with it
-    k4_requests = {"serve": len(reqs), "serve_k2": 4 * len(reqs), "serve_full": len(reqs),
-                   "serve_full_k2": 4 * len(reqs)}
-    server, lite, k1_serve, k4_serve, lite_logits16 = serve_float(
+    reqs = _requests(REQUESTS)
+    server, lite, k1_serve, k2_serve, k4_serve, lite_logits16 = serve_float(
         dev, card, "eco_lite_kinetics", "fc8", reqs)
     pool_checked = check_pool_kernel(dev)
     pool4_checked = check_pool4_kernel(dev, card)
-    trainer, ts, batch, k1_train = train(dev, card)
+    trainer, ts, batch, k1_train, k2_train = train(dev, card)
     f32_step_card_vs_cpu(dev, batch)
     test_batches = [{k: v[0] for k, v in b.items()} for b in (batch, _train_batch(SEED + 3))]
-    k2_test = test_pass(trainer, ts, test_batches)
-    k1_k2serve, k2_serve, k4_k2serve = serve_with_pool_kernel(server, reqs, card,
-                                                              "eco_lite_kinetics", 2)
+    k1_test, k2_test = test_pass(trainer, ts, test_batches)
     del trainer, ts, server
     qconv_checked = check_qconv_kernel(dev)
-    server, full, k1_full, k4_full, full_logits16 = serve_float(
+    server, full, k1_full, k2_full, k4_full, full_logits16 = serve_float(
         dev, card, "eco_full_kinetics", "fc8N", reqs)
-    k1_full_k2, k2_full, k4_full_k2 = serve_with_pool_kernel(server, reqs, card,
-                                                             "eco_full_kinetics", 4)
     del server
     checked.update(check_k1_i3d(dev))
     i3d = serve_i3d(dev, card)
-    k4_requests["serve_i3d"] = i3d["requests"]
     pool4_i3d = check_pool4_i3d(dev, card)
     k1_int8_lite, k3_int8_lite, server, int8_lite = serve_int8(
         dev, card, "eco_lite_kinetics", "fc8", lite + (lite_logits16,), reqs)
     timed = {}
     k3_request = {"eco_lite_kinetics": k3_request_layers(server, reqs[1], "eco_lite_kinetics",
-                                                         card, baseline, timed, args.k3_table)}
+                                                         card, timed, args.k3_table)}
     del server
     online_counts = online_phase(dev, card, lite, int8_lite)
     k1_int8_full, k3_int8_full, server, _ = serve_int8(dev, card, "eco_full_kinetics", "fc8N",
                                                        full + (full_logits16,), reqs)
     k3_request["eco_full_kinetics"] = k3_request_layers(server, reqs[1], "eco_full_kinetics",
-                                                        card, baseline, timed, args.k3_table)
+                                                        card, timed, args.k3_table)
     del server
     k1_e2e = train_e2e(dev, card)
     resize_checked = check_resize(dev, card)
@@ -3465,15 +3243,15 @@ def main() -> None:
     for name in ("jax", "eco_tpu"):
         if name in sys.modules:
             raise AssertionError(f"the port imported {name}")
-    k1_paths = {"serve": k1_serve, "train": k1_train, "test": len(test_batches),
-                "serve_k2": k1_k2serve, "serve_full": k1_full, "serve_full_k2": k1_full_k2,
-                "serve_i3d": i3d["k1"],
+    k1_paths = {"serve": k1_serve, "train": k1_train, "test": k1_test,
+                "serve_full": k1_full, "serve_i3d": i3d["k1"],
                 "serve_int8_lite": k1_int8_lite, "serve_int8_full": k1_int8_full,
                 **online_counts["k1"], **k1_e2e, "remat": remat["k1"], **cli_counts["k1"],
                 **tail["k1"], **parallel["k1"], **probe["k1"]}
-    k2_paths = {"test": k2_test, "serve_k2": k2_serve, "serve_full_k2": k2_full}
-    k4_paths = {"serve": k4_serve, "serve_k2": k4_k2serve, "serve_full": k4_full,
-                "serve_full_k2": k4_full_k2, "serve_i3d": i3d["k4"]}
+    # the paths that read K2's count; each checks it is 0, since K4 takes its pools
+    k2_paths = {"serve": k2_serve, "train": k2_train, "test": k2_test, "serve_full": k2_full,
+                "serve_i3d": i3d["k2"]}
+    k4_paths = {"serve": k4_serve, "serve_full": k4_full, "serve_i3d": i3d["k4"]}
     k3_paths = {"serve_int8_lite": k3_int8_lite, "serve_int8_full": k3_int8_full,
                 **online_counts["k3"], **cli_counts["k3"], **examples["k3"], **probe["k3"]}
     records = [
@@ -3507,13 +3285,13 @@ def main() -> None:
             "probe": probe["probe"],
         },
         {
-            "name": "caffe_pool2d",
+            "name": "caffe_pool",
             "route": "cuda",
             "source": "eco_tpu_torch/csrc/pool.cu",
             "replaces": "eco_tpu_torch/ops/pool.py:padded_pool on the card (no TPU kernel)",
             "launches": sum(k4_paths.values()),
             "launches_by_path": k4_paths,
-            "launches_per_request": {k: v / k4_requests[k] for k, v in k4_paths.items()},
+            "launches_per_request": {k: v / REQUESTS for k, v in k4_paths.items()},
             # of which on the 3D path
             "launches_3d_by_path": {"serve_i3d": i3d["k4_3d"]},
             # float pools on the card that took the padded route instead

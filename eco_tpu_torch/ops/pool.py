@@ -12,11 +12,7 @@ those.
 - a float 2D or 3D MAX or AVE pool of a contiguous tensor on the card, with
   no gradient asked and no trace running, goes to K4, the one-pass kernel of
   ``ops/poolk.py`` (``poolk.takes``, then ``poolk.launch``, which pools a
-  3D window of one frame as a 2D pool of each frame); with
-  ``ECO_PALLAS_POOL=1`` a float 3x3/s2/pad-0 max pool with even H and W on
-  the card goes to the fused kernel of ``ops/poolfuse.py`` (K2) first, as
-  the reference's goes to its Pallas kernel on the TPU; K2 has no backward
-  and raises when a gradient is asked through it;
+  3D window of one frame as a 2D pool of each frame);
 - everything else takes the padded route, :func:`padded_pool`, which is
   also K4's plain version.  ``COUNTS["pool.route"]`` counts the float pools
   on the card that take it.
@@ -56,7 +52,6 @@ from __future__ import annotations
 
 import functools
 import math
-import os
 
 import numpy as np
 import torch
@@ -67,7 +62,7 @@ from eco_tpu_torch.utils.shapes import (
     caffe_pool_out_dim,
     normalize_spatial_param,
 )
-from eco_tpu_torch.ops import poolfuse, poolk
+from eco_tpu_torch.ops import poolk
 from eco_tpu_torch.ops.layout import extract_windows, pad_spatial
 from eco_tpu_torch.utils.tracing import COUNTS, span
 
@@ -123,10 +118,6 @@ def pool_nd(
         out = math.prod(caffe_pool_out_dim(size, k, s, p)[0]
                         for size, k, s, p in zip(x.shape[1:-1], kernel, stride, pad))
         COUNTS["pool.bytes"] += (x.numel() + x.shape[0] * out * x.shape[-1]) * x.element_size()
-    if (mode == "max" and os.environ.get("ECO_PALLAS_POOL") == "1"
-            and x.device.type == "cuda" and x.dtype.is_floating_point
-            and poolfuse.supports(x.shape, kernel, stride, pad, mode)):
-        return poolfuse.fused_maxpool_3x3s2(x)
     if poolk.takes(x, mode):
         return poolk.launch(x, kernel, stride, pad, mode)
     if x.device.type == "cuda" and x.dtype.is_floating_point:

@@ -1,9 +1,8 @@
 """Caffe ceil-mode 3x3 / stride-2 max pool with an optional affine + ReLU.
 
-Twin of ``eco_tpu/ops/pallas/poolfuse.py``.  ``pool_nd`` takes it for every
-float 3x3/s2/pad-0 max pool with even H and W when ``ECO_PALLAS_POOL=1`` is
-set and the tensor is on the card, as the reference takes its Pallas kernel
-on the TPU; otherwise the pool stays on ATen.
+Twin of ``eco_tpu/ops/pallas/poolfuse.py`` (K2).  It is called directly:
+no route of ``ops/pool.py:pool_nd`` takes it, because K4 (``ops/poolk.py``)
+takes every float pool on the card, this one's 3x3/s2 windows included.
 
 - ``fused_maxpool_3x3s2`` keeps the reference signature, less its TPU-only
   ``images_per_step`` and ``interpret``.  A CUDA tensor goes to the

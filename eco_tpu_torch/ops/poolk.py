@@ -9,12 +9,12 @@ the padded route, ``pool.padded_pool``, which is also K4's plain version:
 the kernel gives its bits in every float type (``csrc/pool.cu`` says how the
 AVE sum order makes that so).
 
-- :func:`caffe_pool2d` and :func:`caffe_pool3d` launch the hand-written
-  kernel ``csrc/pool.cu`` (built with ``nvcc`` at first use) on the current
-  stream, or raise on what it does not take; :func:`launch`, which
-  ``pool_nd`` calls once :func:`takes` has held, launches it unchecked.  A
-  3D pool whose window, stride and pad along T are 1, 1 and 0 is a 2D pool
-  of each frame: it runs on the 2D path over the (N * T, H, W, C) view.
+- :func:`caffe_pool` launches the hand-written kernel ``csrc/pool.cu``
+  (built with ``nvcc`` at first use) on the current stream, or raises on
+  what it does not take; :func:`launch`, which ``pool_nd`` calls once
+  :func:`takes` has held, launches it unchecked.  A 3D pool whose window,
+  stride and pad along T are 1, 1 and 0 is a 2D pool of each frame: it runs
+  on the 2D path over the (N * T, H, W, C) view.
 - :func:`plan` and :func:`plan3d` pick the kernel's path and tile from the
   shapes, the one place that decides them; the CPU tests reach them.
 - ``COUNTS["k4.launches"]`` (``utils/tracing.py``) counts every launch,
@@ -290,24 +290,27 @@ def launch(x: torch.Tensor, kernel, stride, pad, mode: str) -> torch.Tensor:
     return _pool3d(x, kernel, stride, pad, mode)
 
 
-def caffe_pool2d(x: torch.Tensor, kernel, stride, pad, mode: str) -> torch.Tensor:
+def caffe_pool(x: torch.Tensor, kernel, stride, pad, mode: str) -> torch.Tensor:
     """Caffe ceil-mode MAX (``mode`` "max") or AVE ("ave") pool of a
-    contiguous (N, H, W, C) float tensor on the card; ``kernel``, ``stride``
-    and ``pad`` are (h, w) pairs."""
-    if not (takes(x, mode) and x.ndim == 4):
+    contiguous (N, H, W, C) or (N, T, H, W, C) float tensor on the card;
+    ``kernel``, ``stride`` and ``pad`` have one entry a spatial axis."""
+    if not takes(x, mode):
         raise ValueError(
-            f"caffe_pool2d takes a contiguous (N, H, W, C) f32/bf16/f16 tensor on the "
-            f"card with no gradient asked, mode 'max' or 'ave'; got {tuple(x.shape)} "
-            f"{x.dtype} on {x.device}, mode {mode!r}")
+            f"caffe_pool takes a contiguous (N, H, W, C) or (N, T, H, W, C) f32/bf16/f16 "
+            f"tensor on the card with no gradient asked, mode 'max' or 'ave'; got "
+            f"{tuple(x.shape)} {x.dtype} on {x.device}, mode {mode!r}")
     kernel, stride, pad = (tuple(int(v) for v in a) for a in (kernel, stride, pad))
+    if not len(kernel) == len(stride) == len(pad) == x.ndim - 2:
+        raise ValueError(f"caffe_pool takes one kernel, stride and pad entry a spatial axis "
+                         f"of {tuple(x.shape)}; got {kernel}, {stride}, {pad}")
     if min(kernel + stride) < 1 or min(pad) < 0:
-        raise ValueError(f"caffe_pool2d takes kernel >= 1, stride >= 1 and pad >= 0; "
+        raise ValueError(f"caffe_pool takes kernel >= 1, stride >= 1 and pad >= 0; "
                          f"got {kernel}, {stride}, {pad}")
-    return _pool2d(x, kernel, stride, pad, mode)
+    return launch(x, kernel, stride, pad, mode)
 
 
 def _pool2d(x: torch.Tensor, kernel, stride, pad, mode: str) -> torch.Tensor:
-    """Launch the 2D path on what :func:`caffe_pool2d` checks."""
+    """Launch the 2D path on what :func:`caffe_pool` checks."""
     (kh, kw), (sh, sw), (ph, pw) = kernel, stride, pad
     n, h, w, c = x.shape
     p = plan(x.shape, kernel, stride, pad, x.element_size(), x.data_ptr() % 16 == 0)
@@ -318,30 +321,13 @@ def _pool2d(x: torch.Tensor, kernel, stride, pad, mode: str) -> torch.Tensor:
         p.threads, p.smem, torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"caffe_pool2d kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"caffe_pool kernel launch failed (2D path): CUDA error {err}")
     COUNTS["k4.launches"] += 1
     return out
 
 
-def caffe_pool3d(x: torch.Tensor, kernel, stride, pad, mode: str) -> torch.Tensor:
-    """Caffe ceil-mode MAX or AVE pool of a contiguous (N, T, H, W, C) float
-    tensor on the card; ``kernel``, ``stride`` and ``pad`` are (t, h, w)
-    triples.  A window of one frame with stride 1 and no pad along T pools
-    each frame alone, on the 2D path over the (N * T, H, W, C) view."""
-    if not (takes(x, mode) and x.ndim == 5):
-        raise ValueError(
-            f"caffe_pool3d takes a contiguous (N, T, H, W, C) f32/bf16/f16 tensor on the "
-            f"card with no gradient asked, mode 'max' or 'ave'; got {tuple(x.shape)} "
-            f"{x.dtype} on {x.device}, mode {mode!r}")
-    kernel, stride, pad = (tuple(int(v) for v in a) for a in (kernel, stride, pad))
-    if min(kernel + stride) < 1 or min(pad) < 0:
-        raise ValueError(f"caffe_pool3d takes kernel >= 1, stride >= 1 and pad >= 0; "
-                         f"got {kernel}, {stride}, {pad}")
-    return launch(x, kernel, stride, pad, mode)
-
-
 def _pool3d(x: torch.Tensor, kernel, stride, pad, mode: str) -> torch.Tensor:
-    """Launch the 3D path on what :func:`caffe_pool3d` checks."""
+    """Launch the 3D path on what :func:`caffe_pool` checks."""
     p = plan3d(x.shape, kernel, stride, pad, mode, x.element_size(), x.data_ptr() % 16 == 0)
     n, t, h, w, c = x.shape
     out = torch.empty((n, p.to, p.ho, p.wo, c), dtype=x.dtype, device=x.device)
@@ -351,7 +337,7 @@ def _pool3d(x: torch.Tensor, kernel, stride, pad, mode: str) -> torch.Tensor:
         *p.tiles, p.threads, p.smem, torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"caffe_pool3d kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"caffe_pool kernel launch failed (3D path): CUDA error {err}")
     COUNTS["k4.launches"] += 1
     COUNTS["k4.launches.3d"] += 1
     return out

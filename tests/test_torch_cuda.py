@@ -318,24 +318,19 @@ def test_fused_maxpool_propagates_nan_like_plain_version(cuda):
     assert torch.equal(got.nan_to_num(), want.nan_to_num())
 
 
-def test_pool_route_takes_kernel_only_when_asked_and_never_under_a_gradient(cuda, monkeypatch):
+def test_pool_nd_takes_k4_not_k2_at_a_k2_shape(cuda):
+    """``pool_nd`` at a K2 shape launches K4 once and K2 never, equal to K2's
+    plain version; K2 runs only when called, and raises under a gradient."""
     x = torch.randn(2, 16, 16, 8, device=cuda)
     want = poolfuse.fused_maxpool_3x3s2_reference(x)
-    before = COUNTS["k2.launches"]
+    k2, k4 = COUNTS["k2.launches"], COUNTS["k4.launches"]
     assert torch.equal(pool_nd(x, kernel=3, stride=2, mode="max"), want)
-    assert COUNTS["k2.launches"] == before  # variable unset: ATen
-    monkeypatch.setenv("ECO_PALLAS_POOL", "1")
-    assert torch.equal(pool_nd(x, kernel=3, stride=2, mode="max"), want)
-    assert COUNTS["k2.launches"] == before + 1
-    # not supported (odd H), integer, or pad: the route stays on ATen
-    pool_nd(x[:, :15], kernel=3, stride=2, mode="max")
-    pool_nd(x.to(torch.int8), kernel=3, stride=2, mode="max")
-    pool_nd(x, kernel=3, stride=2, pad=1, mode="max")
-    assert COUNTS["k2.launches"] == before + 1
+    assert (COUNTS["k2.launches"], COUNTS["k4.launches"]) == (k2, k4 + 1)
     with pytest.raises(NotImplementedError, match="backward"):
-        pool_nd(x.requires_grad_(), kernel=3, stride=2, mode="max")
+        poolfuse.fused_maxpool_3x3s2(x.clone().requires_grad_())
     with pytest.raises(ValueError, match="contiguous"):
-        poolfuse.fused_maxpool_3x3s2(x.detach().transpose(1, 2))
+        poolfuse.fused_maxpool_3x3s2(x.transpose(1, 2))
+    assert COUNTS["k2.launches"] == k2
 
 
 FLOATS = [torch.float32, torch.bfloat16, torch.float16]
@@ -411,22 +406,25 @@ def test_ave_route_gradient_on_card_matches_cpu(cuda, shape, k, s, p):
 def test_k4_max_propagates_nan_like_plain_route(cuda, k, s, p):
     x = torch.randn(1, 8, 8, 8, device=cuda)
     x[0, 4, 4, 2] = float("nan")
-    got = poolk.caffe_pool2d(x, (k, k), (s, s), (p, p), "max")
+    got = poolk.caffe_pool(x, (k, k), (s, s), (p, p), "max")
     want = pool.padded_pool(x, (k, k), (s, s), (p, p), "max")
     assert torch.equal(got.isnan(), want.isnan()) and got.isnan().sum() == (4 if s == 2 else 9)
     assert torch.equal(got.nan_to_num(), want.nan_to_num())
 
 
-def test_k4_wrapper_rejects_what_the_kernel_does_not_take(cuda):
-    x = torch.randn(2, 8, 8, 8, device=cuda)
-    bad = [x.transpose(1, 2), x.to(torch.int8), x[None], x.cpu(), x.clone().requires_grad_()]
+@pytest.mark.parametrize("rank", [4, 5])
+def test_k4_wrapper_rejects_what_the_kernel_does_not_take(cuda, rank):
+    x = torch.randn((2, 4, 8, 8, 8)[5 - rank:], device=cuda)
+    k, s, p = (3,) * (rank - 2), (1,) * (rank - 2), (1,) * (rank - 2)
+    other_rank = x[None] if rank == 4 else x[0]
+    bad = [x.transpose(-3, -2), x.to(torch.int8), other_rank, x.cpu(), x.clone().requires_grad_()]
     for y in bad:
-        with pytest.raises(ValueError, match="caffe_pool2d takes"):
-            poolk.caffe_pool2d(y, (3, 3), (2, 2), (0, 0), "max")
+        with pytest.raises(ValueError, match="caffe_pool takes"):
+            poolk.caffe_pool(y, k, s, p, "max")
     with pytest.raises(ValueError, match="mode"):
-        poolk.caffe_pool2d(x, (3, 3), (2, 2), (0, 0), "stochastic")
+        poolk.caffe_pool(x, k, s, p, "stochastic")
     with pytest.raises(ValueError, match="pad >= 0"):
-        poolk.caffe_pool2d(x, (3, 3), (2, 2), (-1, 0), "max")
+        poolk.caffe_pool(x, k, s, (-1,) + p[1:], "max")
 
 
 def _k4_held3(x, k, s, p, mode):
@@ -502,22 +500,10 @@ def test_k4_3d_max_propagates_nan_like_plain_route(cuda, k, s, p, dtype):
     x = torch.randn(1, 6, 8, 8, 16, device=cuda).to(dtype)
     x[0, 3, 4, 4, 2] = float("nan")
     x[0, 0, 0, 7, 9] = float("nan")
-    got = poolk.caffe_pool3d(x, k, s, p, "max")
+    got = poolk.caffe_pool(x, k, s, p, "max")
     want = pool.padded_pool(x, k, s, p, "max")
     assert torch.equal(got.isnan(), want.isnan()) and got.isnan().sum() >= 2
     assert torch.equal(got.nan_to_num(), want.nan_to_num())
-
-
-def test_k4_3d_wrapper_rejects_what_the_kernel_does_not_take(cuda):
-    x = torch.randn(2, 4, 8, 8, 8, device=cuda)
-    bad = [x.transpose(2, 3), x.to(torch.int8), x[0], x.cpu(), x.clone().requires_grad_()]
-    for y in bad:
-        with pytest.raises(ValueError, match="caffe_pool3d takes"):
-            poolk.caffe_pool3d(y, (3, 3, 3), (1, 1, 1), (1, 1, 1), "max")
-    with pytest.raises(ValueError, match="mode"):
-        poolk.caffe_pool3d(x, (3, 3, 3), (1, 1, 1), (1, 1, 1), "stochastic")
-    with pytest.raises(ValueError, match="pad >= 0"):
-        poolk.caffe_pool3d(x, (3, 3, 3), (1, 1, 1), (1, -1, 1), "max")
 
 
 def test_bf16_i3d_serving_request_takes_k4_at_every_pool(cuda):
@@ -781,15 +767,13 @@ def test_qconv_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 @pytest.mark.parametrize("shape,kernel,stride,pad", [
     ((4, 112, 112, 64), 3, 2, 0), ((2, 28, 28, 96), 3, 1, 1), ((2, 15, 15, 8), 3, 2, 0)])
 def test_int8_max_pool_on_card_matches_cpu(cuda, shape, kernel, stride, pad):
-    """The int8 max pool of the int8 chains (integer-minimum padding, no K2
-    even when it is asked for) equals the CPU's."""
+    """The int8 max pool of the int8 chains (integer-minimum padding, no K2)
+    equals the CPU's."""
     gen = torch.Generator().manual_seed(2)
     x = torch.randint(-127, 128, shape, dtype=torch.int8, generator=gen)
     want = pool_nd(x, kernel=kernel, stride=stride, pad=pad, mode="max")
     before = COUNTS["k2.launches"]
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("ECO_PALLAS_POOL", "1")
-        got = pool_nd(x.to(cuda), kernel=kernel, stride=stride, pad=pad, mode="max")
+    got = pool_nd(x.to(cuda), kernel=kernel, stride=stride, pad=pad, mode="max")
     assert COUNTS["k2.launches"] == before
     assert got.dtype == torch.int8 and torch.equal(got.cpu(), want)
 

@@ -305,7 +305,7 @@ def test_k4_wrapper_rejects_what_the_kernel_does_not_take():
     from eco_tpu_torch.ops import poolk
 
     with pytest.raises(ValueError, match="on the card"):
-        poolk.caffe_pool2d(torch.zeros(2, 8, 8, 8), (3, 3), (2, 2), (0, 0), "max")
+        poolk.caffe_pool(torch.zeros(2, 8, 8, 8), (3, 3), (2, 2), (0, 0), "max")
 
 
 I3D_3D_POOLS = sorted(n for n, v in I3D_POOLS.items() if v[1][0] > 1)
@@ -389,8 +389,8 @@ def test_k4_3d_wrapper_rejects_what_the_kernel_does_not_take(args):
     from eco_tpu_torch.ops import poolk
 
     x, mode = args
-    with pytest.raises(ValueError, match="caffe_pool3d takes"):
-        poolk.caffe_pool3d(x, (3, 3, 3), (1, 1, 1), (1, 1, 1), mode)
+    with pytest.raises(ValueError, match="caffe_pool takes"):
+        poolk.caffe_pool(x, (3, 3, 3), (1, 1, 1), (1, 1, 1), mode)
 
 
 @pytest.mark.parametrize("shape", [(2, 7, 7, 8), (2, 4, 7, 7, 8)])

@@ -1,6 +1,6 @@
 """The plain version of K2, eco_tpu_torch's fused 3x3/s2 max pool, against
 the reference's Pallas kernel ``fused_maxpool_3x3s2`` in interpret mode, and
-the ``ECO_PALLAS_POOL`` route of ``pool_nd`` on the CPU.
+``pool_nd``'s 3x3/s2 max pool on the CPU, which never takes K2.
 
 Tolerances: the plain and ReLU variants select one of the input values, so
 they must be equal; the affine variant computes ``x * scale + shift`` in f32,
@@ -96,11 +96,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.int8])
-def test_pool_nd_with_the_variable_set_on_the_cpu_matches_the_reference(monkeypatch, dtype):
-    """ECO_PALLAS_POOL=1 routes only tensors on the card (the reference only
-    on the TPU): on the CPU pool_nd stays what it was, and it still
-    differentiates."""
-    monkeypatch.setenv("ECO_PALLAS_POOL", "1")
+def test_pool_nd_with_the_variable_set_on_the_cpu_matches_the_reference(dtype):
+    """pool_nd's 3x3/s2 max pool equals the reference's on the CPU, never
+    launches K2 (no route of pool_nd takes it), and still differentiates."""
     y, _, _ = _inputs((2, 12, 12, 8), seed=7)
     y = (y * 20).astype(dtype)
     want = np.asarray(jax_pool_nd(jnp.asarray(y), kernel=3, stride=2, mode="max"))
