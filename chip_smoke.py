@@ -6,8 +6,8 @@
 Phases (every failure raises; the exit code is then non-zero):
 
 1. The card's name and power limit (nvidia-smi), and the build of the CUDA
-   kernels ``eco_tpu_torch/csrc/{preprocess,poolfuse,qconv,pool}.cu``, one
-   nvcc each, started together.
+   kernels ``eco_tpu_torch/csrc/{preprocess,poolfuse,qconv,pool,s2d}.cu``,
+   one nvcc each, started together.
 2. K1 against its plain PyTorch version on the card at the serving shape
    (8, 16, 256, 340, 3) uint8, random in-range offsets and mirrors, from the
    device and from the host, in bf16, f32 and int8: the outputs must be
@@ -62,11 +62,20 @@ Phases (every failure raises; the exit code is then non-zero):
    bf16 ``UInt8Server`` with mean 127.5: a warm-up request and three
    checked, K1 once a request, K2 and K3 never, K4 once for each of its 14
    3D pools (12 on the 3D path; counted by path in the ``kernels`` line)
-   and none on the padded route, the probabilities and logits checked as in
-   phase 3.  Then K4 against its plain version at every I3D pool
-   (``I3D_POOLS``, 8 clips) in f32, bf16 and f16: equal; then K4, the route
-   and the library's pool (``max_pool3d`` / ``avg_pool3d``) timed in bf16 in
-   CUDA graphs beside K4's bound, by pool and summed over a request.
+   and none on the padded route, K5 once a request (the stem's
+   space-to-depth), the probabilities and logits checked as in phase 3.
+   Then K4 against its plain version at every I3D pool (``I3D_POOLS``, 8
+   clips) in f32, bf16 and f16: equal; then K4, the route and the library's
+   pool (``max_pool3d`` / ``avg_pool3d``) timed in bf16 in CUDA graphs
+   beside K4's bound, by pool and summed over a request.  Then K5 against
+   its plain version at the stem's input (8 clips) and at an odd size
+   (225) in f32, bf16 and f16: equal; K5 and its plain version timed in
+   bf16 in CUDA graphs beside K5's bound, and cuDNN's stem as the parent
+   graph ran it (the pad, then the 7x7x7/s2 conv over 3 channels) beside
+   the 4x4x4/s1 conv over the cells at 24 and 32 channels; and ECO's 2D
+   ``conv1_7x7_s2`` at 512 frames as it is and as a 4x4 conv over 2x2
+   cells of 12 or 16 channels (a measurement only: ECO runs no
+   space-to-depth).
 10. int8 serving of ECO-Lite and of ECO-Full: ``quantize_for_serving`` of the
     optimized graph, calibrated on two batches of K1's f32 clips, served in
     bf16 by ``UInt8Server(int8_input=True)`` (K1 emits int8 into conv1): K1
@@ -216,6 +225,7 @@ from eco_tpu_torch.convert import (
     quantize_for_serving,
     save_serving_artifact,
 )
+from eco_tpu_torch.convert.load import space_to_depth_weight
 from eco_tpu_torch.data import (
     TransformConfig,
     VideoDataConfig,
@@ -225,7 +235,8 @@ from eco_tpu_torch.data import (
 from eco_tpu_torch.models import build_eco_lite, get_model
 from eco_tpu_torch.apps import serving
 from eco_tpu_torch.examples import quantized_serving
-from eco_tpu_torch.ops import _build, pool, poolfuse, poolk, preprocess, qconv, resize
+from eco_tpu_torch.ops import _build, pool, poolfuse, poolk, preprocess, qconv, resize, s2d
+from eco_tpu_torch.ops.conv import conv_nd
 from eco_tpu_torch.parallel import (
     DATA_AXIS,
     MODEL_AXIS,
@@ -300,6 +311,12 @@ NUM_CLASSES = 400
 # frames, K1 with mean 127.5 (the input transform folded into the stem)
 I3D_MODEL, I3D_FC, I3D_FRAMES = "i3d_rgb_kinetics", "Conv3d_0c_1x1", 64
 I3D_MEAN = (127.5, 127.5, 127.5)
+# I3D's stem, 7x7x7/s2 over 3 channels with TF's (2, 3) pads, which serving
+# runs as K5's space-to-depth and a 4x4x4/s1 conv; K5 is also held at an odd
+# size (225: symmetric pads) at 2 clips of 16 frames
+I3D_STEM, I3D_STEM_PADS = "Conv3d_1a_7x7", ((2, 3), (2, 3), (2, 3))
+K5_ODD = ((2, 16, 225, 225, 3), ((2, 3), (3, 3), (3, 3)))
+STEM_GRAPH_CALLS = 10  # calls a CUDA graph when the stems are timed
 # every pool of I3D-RGB at 64 x 224 x 224, which K4 takes in serving: (T, H,
 # W, C) of a clip, kernel, stride and pad (t, h, w), mode, and how often a
 # request runs it; held and timed at BATCH clips (the card tests and the
@@ -685,8 +702,10 @@ def serve_float(dev, card: str, model: str, fc: str, reqs):
     if k4 != K4_PER_REQUEST[model] * len(reqs) or route:
         raise AssertionError(f"{model} serving launched K4 {k4} times and took the pool "
                              f"route {route} times for {len(reqs)} requests")
+    if COUNTS["s2d.launches"]:
+        raise AssertionError(f"{model} serving launched K5 {COUNTS['s2d.launches']} times")
     print(f"{model} serving: K4 {k4} launches, {k4 / len(reqs):g} a request; "
-          f"the pool route none")
+          f"the pool route none; K5 none")
     print(f"{model} serving: {len(reqs)} requests ({BATCH} videos each), K1 launches "
           f"{launches[0]}; peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
           f"{card}")
@@ -713,7 +732,7 @@ def serve_float(dev, card: str, model: str, fc: str, reqs):
 
 def _reset_counts():
     for k in ("k1.launches", "k2.launches", "k3.launches", "k4.launches", "k4.launches.3d",
-              "pool.route", "pool.bytes"):
+              "pool.route", "pool.bytes", "s2d.launches"):
         COUNTS[k] = 0
 
 
@@ -766,10 +785,11 @@ def serve_i3d(dev, card: str) -> dict:
     ``BATCH`` with seeded random weights, optimized for inference (the input
     transform and every BN folded), served by the bf16 ``UInt8Server`` with
     mean 127.5.  K1 must launch once a request, K2 and K3 never, K4 once a
-    pool (12 of the 14 on its 3D path), and no pool take the padded route.
-    The logits are held to an f32 run of the same server (TF32 off), and that
-    run to the f32 server on the CPU for two of the clips.  Returns the
-    launch and route counts."""
+    pool (12 of the 14 on its 3D path), K5 once (the stem's space-to-depth),
+    and no pool take the padded route.  The logits are held to an f32 run of
+    the same server (TF32 off), and that run to the f32 server on the CPU for
+    two of the clips.  Returns the launch and route counts and the stem's
+    space-to-depth layer."""
     t0 = time.perf_counter()
     graph = get_model(I3D_MODEL, batch=BATCH, num_frames=I3D_FRAMES, crop_size=CROP)
     params, state = Program(graph, device=dev).init(
@@ -789,14 +809,17 @@ def serve_i3d(dev, card: str) -> dict:
     k1, k2, k3 = _counts()
     k4, route = _pool_counts()
     k4_3d, pool_bytes = COUNTS["k4.launches.3d"], COUNTS["pool.bytes"]
-    want = (len(reqs), 0, 0, pools * len(reqs), _i3d_pools(path3d=True) * len(reqs), 0)
-    if pools != _i3d_pools() or (k1, k2, k3, k4, k4_3d, route) != want:
+    k5 = COUNTS["s2d.launches"]
+    want = (len(reqs), 0, 0, pools * len(reqs), _i3d_pools(path3d=True) * len(reqs), 0,
+            len(reqs))
+    if pools != _i3d_pools() or (k1, k2, k3, k4, k4_3d, route, k5) != want:
         raise AssertionError(f"{I3D_MODEL} serving launched K1, K2, K3, K4, K4 in 3D "
-                             f"{(k1, k2, k3, k4, k4_3d)} times and took the pool route "
-                             f"{route} times for {len(reqs)} requests of {pools} pools")
+                             f"{(k1, k2, k3, k4, k4_3d)} times, took the pool route "
+                             f"{route} times and launched K5 {k5} times for {len(reqs)} "
+                             f"requests of {pools} pools")
     print(f"{I3D_MODEL} serving: {len(reqs)} requests ({BATCH} clips of {I3D_FRAMES} frames "
           f"each), K1 launches {k1}, K2 / K3 none, K4 {k4} ({k4 // len(reqs)} a request, "
-          f"{k4_3d // len(reqs)} of them 3D), the pool route {route}, pool bytes "
+          f"{k4_3d // len(reqs)} of them 3D), K5 {k5}, the pool route {route}, pool bytes "
           f"{pool_bytes // len(reqs):,} a request; peak memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; {card}")
     _check_probs(outs)
@@ -816,7 +839,95 @@ def serve_i3d(dev, card: str) -> dict:
     if not rel_cpu <= F32_CARD_VS_CPU_REL_L2_BOUND:
         raise AssertionError(f"{I3D_MODEL} f32 logits on the card off the CPU's by rel L2 "
                              f"{rel_cpu}")
-    return {"k1": k1, "k2": k2, "k4": k4, "k4_3d": k4_3d, "route": route}
+    return {"k1": k1, "k2": k2, "k4": k4, "k4_3d": k4_3d, "route": route, "k5": k5,
+            "s2d_layer": g_opt.layer(f"{I3D_STEM}/space_to_depth")}
+
+
+def check_s2d_kernel(dev, card: str, layer) -> dict:
+    """K5 against its plain version at the I3D stem's input (BATCH clips of
+    64 frames, the serving graph's ``layer``: pads and width) and at
+    ``K5_ODD``, in f32, bf16 and f16 (``torch.equal``); then K5 and its plain
+    version timed in bf16 in CUDA graphs beside K5's bound; cuDNN's stem as
+    the parent graph ran it (``conv_nd`` with the (2, 3) pads: the pad's
+    copy, then the 7x7x7/s2 conv over 3 channels) and the 4x4x4/s1 conv over
+    the cells at 24 and at 32 channels, in turns; and ECO's 2D
+    ``conv1_7x7_s2`` over 512 frames as it is and as a 4x4 conv over 2x2
+    cells of 12 and of 16 channels (cuDNN alone: ECO runs no space-to-depth).
+    Returns the times."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    block, pads, width = layer.opt("block"), layer.opt("pad"), layer.opt("channels")
+    stem = (BATCH, I3D_FRAMES, CROP, CROP, 3)
+    for shape, p in ((stem, pads), K5_ODD):
+        base = torch.randn(shape, device=dev, generator=gen)
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            x = base.to(dtype)
+            got = s2d.space_to_depth(x, block, p, width)
+            want = s2d.space_to_depth_reference(x, block, p, width)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"K5 disagrees with its plain version: {shape} {dtype}")
+        del base, x, got, want
+    print(f"K5 at {stem} and {K5_ODD[0]} in f32/bf16/f16: equal to its plain version")
+    x = torch.randn(stem, device=dev, generator=gen).to(torch.bfloat16)
+    kernel = lambda: s2d.space_to_depth(x, block, pads, width)
+    plain = lambda: s2d.space_to_depth_reference(x, block, pads, width)
+    p1, k1, k2, p2 = (_graph_ms(f, K4_GRAPH_CALLS) for f in (plain, kernel, kernel, plain))
+    cells = kernel()
+    moved = (x.numel() + cells.numel()) * 2  # bf16 read + write
+    out = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "bound_ms": _bound_ms(moved)[0],
+           "moved_mb": moved / 1e6, "width": width}
+    print(f"K5 bf16 {stem} -> {tuple(cells.shape)}, CUDA graphs of {K4_GRAPH_CALLS} calls: "
+          f"kernel {out['ms']:.4f} ms ({k1:.4f}, {k2:.4f}), plain {out['plain_ms']:.4f} ms "
+          f"({p1:.4f}, {p2:.4f}); bound {out['bound_ms']:.4f} ms ({moved / 1e6:.1f} MB), "
+          f"kernel at {out['bound_ms'] / out['ms']:.1%} of it; {card}")
+
+    torch.backends.cudnn.benchmark = True
+    w7 = (torch.randn(64, 3, 7, 7, 7, device=dev, generator=gen) * 0.05).to(torch.bfloat16)
+    cells = {c: s2d.space_to_depth(x, block, pads, c) for c in (24, 32)}
+    w4 = {c: space_to_depth_weight(w7.float(), c).to(torch.bfloat16) for c in (24, 32)}
+    stems = {"parent": lambda: conv_nd(x, w7, stride=2, pad=I3D_STEM_PADS),
+             "cells_24": lambda: conv_nd(cells[24], w4[24]),
+             "cells_32": lambda: conv_nd(cells[32], w4[32])}
+    if stems["cells_32"]().shape != stems["parent"]().shape:
+        raise AssertionError("the 4x4x4/s1 stem's output is not the 7x7x7/s2 stem's shape")
+    flops = 2 * math.prod(stems["parent"]().shape) * 3 * 7 ** 3
+    times = _in_turns(stems)
+    for name, t in times.items():
+        runs = ", ".join(f"{v:.4f}" for v in t["runs"])
+        print(f"I3D stem {name}, bf16, {BATCH} clips, cuDNN in CUDA graphs of "
+              f"{STEM_GRAPH_CALLS} calls: {t['ms']:.4f} ms ({runs}), "
+              f"{flops / t['ms'] / 1e9:.1f} TFLOP/s of the 7x7x7/s2 conv's {flops / 1e12:.3f} "
+              f"TFLOP; {card}")
+    out["stem"] = times
+    del x, cells, stems
+    x2 = torch.randn((K4_FRAMES, CROP, CROP, 3), device=dev, generator=gen).to(torch.bfloat16)
+    w2 = (torch.randn(64, 3, 7, 7, device=dev, generator=gen) * 0.05).to(torch.bfloat16)
+    cells2 = {c: s2d.space_to_depth_reference(x2, (2, 2), ((3, 3), (3, 3)), c) for c in (12, 16)}
+    w2n = {c: (torch.randn(64, c, 4, 4, device=dev, generator=gen) * 0.05).to(torch.bfloat16)
+           for c in (12, 16)}
+    eco = {"as_it_is": lambda: conv_nd(x2, w2, stride=2, pad=3),
+           "cells_12": lambda: conv_nd(cells2[12], w2n[12]),
+           "cells_16": lambda: conv_nd(cells2[16], w2n[16])}
+    if eco["cells_12"]().shape != eco["as_it_is"]().shape:
+        raise AssertionError("ECO's conv1 over 2x2 cells is not conv1's shape")
+    flops2 = 2 * math.prod(eco["as_it_is"]().shape) * 3 * 7 ** 2
+    times = _in_turns(eco)
+    for name, t in times.items():
+        runs = ", ".join(f"{v:.4f}" for v in t["runs"])
+        print(f"ECO conv1_7x7_s2 {name}, bf16, {K4_FRAMES} frames, cuDNN in CUDA graphs: "
+              f"{t['ms']:.4f} ms ({runs}), {flops2 / t['ms'] / 1e9:.1f} TFLOP/s of the 7x7/s2 "
+              f"conv's; {card}")
+    out["eco_conv1"] = times
+    return out
+
+
+def _in_turns(fns: dict) -> dict:
+    """Each of ``fns`` timed twice in CUDA graphs of STEM_GRAPH_CALLS calls,
+    in the order given and then reversed."""
+    runs = {name: [] for name in fns}
+    for name in list(fns) + list(reversed(fns)):
+        runs[name].append(_graph_ms(fns[name], STEM_GRAPH_CALLS))
+    return {name: {"ms": sum(v) / len(v), "runs": v} for name, v in runs.items()}
 
 
 def check_pool_kernel(dev) -> dict:
@@ -3191,12 +3302,13 @@ def main() -> None:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    _build.build_all(["preprocess", "poolfuse", "qconv", "pool"])
+    _build.build_all(["preprocess", "poolfuse", "qconv", "pool", "s2d"])
     preprocess.build_kernel()
     poolfuse.build_kernel()
     qconv.build_kernel()
     poolk.build_kernel()
-    print(f"K1 + K2 + K3 + K4 build (four nvcc together) and load: "
+    s2d.build_kernel()
+    print(f"K1-K5 build (five nvcc together) and load: "
           f"{time.perf_counter() - t0:.2f} s")
 
     checked = check_kernel(dev, card)
@@ -3218,6 +3330,7 @@ def main() -> None:
     checked.update(check_k1_i3d(dev))
     i3d = serve_i3d(dev, card)
     pool4_i3d = check_pool4_i3d(dev, card)
+    s2d_checked = check_s2d_kernel(dev, card, i3d["s2d_layer"])
     k1_int8_lite, k3_int8_lite, server, int8_lite = serve_int8(
         dev, card, "eco_lite_kinetics", "fc8", lite + (lite_logits16,), reqs)
     timed = {}
@@ -3298,6 +3411,17 @@ def main() -> None:
             "route_by_path": {"serve_i3d": i3d["route"]},
             **pool4_checked,
             "i3d": pool4_i3d,
+        },
+        {
+            "name": "space_to_depth",
+            "route": "cuda",
+            "source": "eco_tpu_torch/csrc/s2d.cu",
+            "replaces": "none: I3D's stem as space-to-depth and a stride-1 conv "
+                        "(convert/load.py:fold_space_to_depth)",
+            "launches": i3d["k5"],
+            # serve_float raises unless ECO's requests launched K5 0 times
+            "launches_by_path": {"serve": 0, "serve_full": 0, "serve_i3d": i3d["k5"]},
+            **s2d_checked,
         },
     ]
     print(json.dumps({"kernels": records}))

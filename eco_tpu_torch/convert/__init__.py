@@ -9,6 +9,7 @@ from eco_tpu_torch.convert.load import (
     convert_conv_weight,
     fold_bn,
     fold_input_transform,
+    fold_space_to_depth,
     import_caffe_weights,
 )
 from eco_tpu_torch.convert.quantize import (
@@ -24,10 +25,12 @@ from eco_tpu_torch.spec.transforms import merge_sibling_1x1_convs
 def optimize_for_inference(graph, params, state, *, fold: bool = True,
                            merge: bool = True):
     """Inference-graph optimization pipeline: sibling-1x1 merge, then the
-    folds of BN and of an input transform into the convolutions."""
+    folds of BN and of an input transform into the convolutions, and a 3D
+    stride-2 convolution over a few channels run as space-to-depth."""
     if merge:
         graph, params, state = merge_sibling_1x1_convs(graph, params, state)
     if fold:
         graph, params, state = fold_bn(graph, params, state)
         graph, params, state = fold_input_transform(graph, params, state)
+        graph, params, state = fold_space_to_depth(graph, params, state)
     return graph, params, state

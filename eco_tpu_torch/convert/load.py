@@ -20,6 +20,9 @@ transposes it.
 - :func:`fold_input_transform`: absorbs an ``input_transform`` layer (a
   channel reorder and a scale of the clips, as I3D's BGR -> RGB and
   1/127.5) into the convolutions that read it.
+- :func:`fold_space_to_depth`: runs a 3D stride-2 convolution over a few
+  input channels (I3D's stem) as space-to-depth and a stride-1
+  convolution.
 """
 
 from __future__ import annotations
@@ -28,10 +31,12 @@ from typing import Mapping, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from eco_tpu_torch.convert.caffemodel import load_caffemodel
 from eco_tpu_torch.spec.graph import GraphSpec, LayerSpec
 from eco_tpu_torch.ops.norm import DEFAULT_EPS
+from eco_tpu_torch.utils.shapes import caffe_conv_out_dim, conv_pads, normalize_spatial_param
 
 
 def convert_conv_weight(w: np.ndarray, *, transposed: bool = False) -> np.ndarray:
@@ -229,5 +234,95 @@ def fold_input_transform(graph: GraphSpec, params: Mapping, state: Mapping):
         drop.add(l.name)
     layers = [l.replace(bottoms=tuple(rename.get((l.name, b), b) for b in l.bottoms))
               for l in graph.layers if l.name not in drop]
+    return (GraphSpec(graph.name, dict(graph.inputs), layers, dict(graph.options)),
+            new_params, state)
+
+
+# The convolution after space-to-depth reads this many channels a cell: the
+# cell's 8 x C_in (C_in <= 4), then zero channels with zero weights.  On an
+# H100 (bf16, cuDNN's benchmark mode, CUDA graphs) I3D's 4x4x4/s1 stem over
+# 8 clips took 2.22-2.37 ms at 32 channels and 4.34-4.35 ms at 24; the
+# 7x7x7/s2 conv over 3 channels 11.99-12.27 ms.
+S2D_CHANNELS = 32
+
+
+def _s2d_stem(l: LayerSpec, params: Mapping) -> bool:
+    """A convolution that :func:`fold_space_to_depth` rewrites, read from
+    its shape alone: 3D, not transposed, one group, no dilation, at most 4
+    input channels, stride 2 on every axis, every kernel side odd and at
+    least 5."""
+    if (l.type != "convolution" or l.opt("transposed", False)
+            or int(l.opt("group", 1)) != 1):
+        return False
+    w = params.get(l.name, {}).get("w")
+    if w is None or w.ndim != 5 or w.shape[1] > 4:
+        return False
+    return (normalize_spatial_param(l.opt("stride", 1), 3, default=1) == (2, 2, 2)
+            and normalize_spatial_param(l.opt("dilation", 1), 3, default=1) == (1, 1, 1)
+            and all(k % 2 == 1 and k >= 5 for k in w.shape[2:]))
+
+
+def space_to_depth_weight(w: torch.Tensor, channels: int) -> torch.Tensor:
+    """A stride-2 kernel ``w`` (C_out, C_in, *k) of odd sides as the
+    stride-1 kernel over 2x2x2 cells: zero-padded to 2 * ceil(k/2) at the
+    high end of each axis, each (dt, dh, dw) offset made a block of C_in
+    input channels (``ops/s2d.py``'s order), then zero channels up to
+    ``channels``: (C_out, ``channels``, *ceil(k/2))."""
+    co, ci, *k = w.shape
+    half = [(kk + 1) // 2 for kk in k]
+    flat = []  # F.pad lists axes from the last
+    for kk, hh in reversed(list(zip(k, half))):
+        flat += [0, 2 * hh - kk]
+    w = F.pad(w, flat).reshape(co, ci, half[0], 2, half[1], 2, half[2], 2)
+    w = w.permute(0, 3, 5, 7, 1, 2, 4, 6).reshape(co, 8 * ci, *half)
+    return F.pad(w, [0] * 6 + [0, channels - 8 * ci]).contiguous()
+
+
+def fold_space_to_depth(graph: GraphSpec, params: Mapping, state: Mapping):
+    """Run each 3D stride-2 convolution over a few input channels (odd
+    kernel sides of at least 5: I3D's 3-channel 7x7x7/s2 stem) as a
+    ``space_to_depth`` layer and a stride-1 convolution; returns
+    (new_graph, new_params, state).
+
+    The layer zero-pads the input by the convolution's (lo, hi) pads, and
+    by one more zero at the end of an axis whose padded extent is odd
+    (``ops/s2d.py`` completes the last cell), and lays each 2x2x2 cell along
+    the channels: 8 x C_in of them and zeros up to ``S2D_CHANNELS``.  The
+    convolution then has kernel ceil(k/2), stride 1, no pad, and the kernel
+    of :func:`space_to_depth_weight`; its bias is unchanged.  Output
+    ``(t, h, w)`` of the stride-2 convolution reads padded input ``2t + a``
+    along an axis, ``a < k``: cell ``t + a // 2``, offset ``a % 2``, which
+    is where the new kernel keeps tap ``a``, so both sum the same products
+    of the same values (in another order), and the taps past ``k`` are
+    zeros.  The output extents are held equal here for a padded extent of
+    either parity, and the fold raises where they are not.  A graph with no
+    such convolution (ECO's, whose 7x7/s2 stem is 2D) comes back as it is.
+    """
+    stems = [l for l in graph.layers if _s2d_stem(l, params)]
+    if not stems:
+        return graph, params, state
+    new_params = {k: dict(v) for k, v in params.items()}
+    layers = []
+    for l in graph.layers:
+        if l not in stems:
+            layers.append(l)
+            continue
+        w = params[l.name]["w"]
+        half = [(k + 1) // 2 for k in w.shape[2:]]
+        for k, h in zip(w.shape[2:], half):
+            for padded in range(k, k + 4):  # padded extents of either parity
+                if caffe_conv_out_dim(padded, k, 2, 0) != caffe_conv_out_dim(
+                        -(-padded // 2), h, 1, 0):
+                    raise ValueError(f"fold_space_to_depth: {l.name!r} would change its "
+                                     f"output extent at a padded extent of {padded}")
+        cells = f"{l.name}/space_to_depth"
+        layers.append(LayerSpec(cells, "space_to_depth", l.bottoms, (cells,), {
+            "block": [2, 2, 2], "pad": [list(p) for p in conv_pads(l.opt("pad", 0), 3)],
+            "channels": S2D_CHANNELS}, l.phase))
+        opts = {k: v for k, v in l.options.items()
+                if k not in ("kernel_size", "kernel_h", "kernel_w", "pad")}
+        layers.append(l.replace(bottoms=(cells,), options={
+            **opts, "kernel_size": half, "stride": 1, "pad": 0}))
+        new_params[l.name]["w"] = space_to_depth_weight(w, S2D_CHANNELS)
     return (GraphSpec(graph.name, dict(graph.inputs), layers, dict(graph.options)),
             new_params, state)

@@ -282,9 +282,10 @@ def int8_input_rewrite(graph: GraphSpec, input_name: str = "data",
     ``act_scale`` is rewritten to it, so the dequantization is exact.
     """
     # layout-only ops: value-preserving on int8.  ReLU is not among them,
-    # as in the reference (whose docstring lists it).
+    # as in the reference (whose docstring lists it).  The port's
+    # space-to-depth (zero pads, then a rearrangement) is one too.
     _LAYOUT = {"reshape", "permute", "flatten", "dropout",
-               "fold_segments", "unfold_segments"}
+               "fold_segments", "unfold_segments", "space_to_depth"}
     tracked = {input_name}
     consumers: list[int] = []
     for idx, l in enumerate(graph.layers):

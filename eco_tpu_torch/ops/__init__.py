@@ -42,6 +42,7 @@ from eco_tpu_torch.ops.pool import (
 )
 from eco_tpu_torch.ops.poolfuse import fused_maxpool_3x3s2
 from eco_tpu_torch.ops.preprocess import preprocess_on_device
+from eco_tpu_torch.ops.s2d import space_to_depth
 from eco_tpu_torch.ops.quant import (
     conv_nd_int8,
     inner_product_int8,

@@ -373,6 +373,17 @@ class _InputTransform(LayerImpl):
         return [y * float(spec.opt("scale", 1.0))]
 
 
+class _SpaceToDepth(LayerImpl):
+    """The clip zero-padded and cut into ``block`` cells laid along the
+    channels (``ops/s2d.py``, K5): what ``optimize_for_inference`` puts in
+    front of a stride-2 convolution over few channels
+    (``convert.load.fold_space_to_depth``)."""
+
+    def apply(self, spec, params, state, inputs, ctx):
+        return [ops.space_to_depth(inputs[0], spec.opt("block"), spec.opt("pad"),
+                                   spec.opt("channels"))]
+
+
 class _Dropout(LayerImpl):
     def apply(self, spec, params, state, inputs, ctx):
         x = inputs[0]
@@ -966,6 +977,7 @@ IMPLS: dict[str, LayerImpl] = {
     "relu": _ReLU(),
     "pooling": _Pooling(),
     "input_transform": _InputTransform(),
+    "space_to_depth": _SpaceToDepth(),
     "dropout": _Dropout(),
     "eltwise": _Eltwise(),
     "concat": _Concat(),

@@ -17,6 +17,7 @@
   and ``k4.launches`` (launches of the hand-written kernels of
   ``ops/preprocess.py``, ``ops/poolfuse.py``, ``ops/qconv.py`` and
   ``ops/poolk.py``), ``k4.launches.3d`` (those of K4's 3D path),
+  ``s2d.launches`` (those of K5, ``ops/s2d.py``),
   ``pool.route`` (float pools on the card that took
   ``ops/pool.py``'s padded route instead of K4), ``pool.bytes`` (the least
   bytes of every ``ops/pool.py:pool_nd`` call: input read once, output

@@ -1,4 +1,4 @@
-"""eco_tpu_torch on a CUDA device: the hand-written kernels (K1, K2, K3, K4)
+"""eco_tpu_torch on a CUDA device: the hand-written kernels (K1-K5)
 against their plain versions, the serving path and a train step on the
 card against the same on the CPU, and the world-1 NCCL data-parallel step
 against the plain one.
@@ -18,7 +18,7 @@ from eco_tpu_torch.apps import RawPreprocessProgram, UInt8Server
 from eco_tpu_torch.data import prefetch_to_device
 from eco_tpu_torch.convert import optimize_for_inference, quantize_for_serving
 from eco_tpu_torch.models import build_eco_lite, get_model
-from eco_tpu_torch.ops import pool, poolfuse, poolk, preprocess, qconv
+from eco_tpu_torch.ops import pool, poolfuse, poolk, preprocess, qconv, s2d
 from eco_tpu_torch.ops.quant import conv_nd_int8, inner_product_int8, quantize_weight
 from eco_tpu_torch.ops.pool import pool_nd
 from eco_tpu_torch.ops.resize import preprocess_resize_on_device
@@ -527,6 +527,58 @@ def test_bf16_i3d_serving_request_takes_k4_at_every_pool(cuda):
             COUNTS["pool.route"] - route) == (14, 12, 0)
 
 
+# K5 at I3D's stem (2 clips of 64 frames at 224: TF's (2, 3) pads, the
+# last cell completed with zeros) and at an odd size (225: symmetric pads),
+# and at small shapes of 1, 2 and 4 channels (padded extents even and odd)
+K5_CASES = {
+    "i3d_stem": ((2, 64, 224, 224, 3), ((2, 3), (2, 3), (2, 3))),
+    "odd_225": ((2, 16, 225, 225, 3), ((2, 3), (3, 3), (3, 3))),
+    "one_channel": ((2, 5, 9, 11, 1), ((0, 1), (1, 2), (2, 3))),
+    "two_channels": ((1, 6, 7, 8, 2), ((1, 1), (0, 1), (1, 1))),
+    "four_channels": ((1, 6, 7, 8, 4), ((3, 3), (2, 3), (1, 1))),
+}
+
+
+@pytest.mark.parametrize("channels", [None, 32])
+@pytest.mark.parametrize("dtype", FLOATS)
+@pytest.mark.parametrize("case", sorted(K5_CASES))
+def test_k5_equals_plain_version(cuda, case, dtype, channels):
+    shape, pads = K5_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.randn(shape, device=cuda, generator=gen).to(dtype)
+    if channels and channels * x.element_size() > s2d.MAX_CELL_BYTES:
+        channels = 8 * shape[-1]
+    before = COUNTS["s2d.launches"]
+    got = s2d.space_to_depth(x, (2, 2, 2), pads, channels)
+    torch.cuda.synchronize()
+    assert COUNTS["s2d.launches"] == before + 1
+    want = s2d.space_to_depth_reference(x, (2, 2, 2), pads, channels)
+    assert got.dtype == dtype and got.is_contiguous() and torch.equal(got, want)
+
+
+def test_bf16_i3d_serving_request_runs_the_stem_on_k5(cuda):
+    """The optimized stem reads K5's cells: one launch a request, and no
+    ``eco.pad`` (the stem's asymmetric pad is K5's index arithmetic)."""
+    graph = get_model("i3d_rgb_kinetics", batch=1, num_frames=16, crop_size=224)
+    params, state = Program(graph, device="cpu").init(torch.Generator().manual_seed(0),
+                                                      {"data": graph.inputs["data"]})
+    g, p, s = optimize_for_inference(graph, params, state)
+    p = {ln: {k: v.to(cuda) for k, v in d.items()} for ln, d in p.items()}
+    s = {ln: {k: v.to(cuda) for k, v in d.items()} for ln, d in s.items()}
+    server = UInt8Server(Program(g, compute_dtype=torch.bfloat16, device=cuda), p, s,
+                         crop=224, mean=(127.5, 127.5, 127.5))
+    frames, h_off, w_off, mirror = _batch(cuda, 1, 16, 240, 256, 224)
+    before = COUNTS["s2d.launches"]
+    with torch.no_grad(), torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        probs = server(frames, h_off=h_off, w_off=w_off, mirror=mirror)
+        torch.cuda.synchronize()
+    assert torch.isfinite(probs.float()).all()
+    names = [e.name for e in prof.events()]
+    assert COUNTS["s2d.launches"] - before == 1
+    assert names.count("eco.s2d") == 1 and names.count("eco.pad") == 0
+
+
 @pytest.mark.parametrize("model,fc,pools", [("eco_lite_kinetics", "fc8", 4),
                                             ("eco_full_kinetics", "fc8N", 13)])
 def test_bf16_serving_request_takes_k4_at_every_pool(cuda, model, fc, pools):
@@ -540,12 +592,14 @@ def test_bf16_serving_request_takes_k4_at_every_pool(cuda, model, fc, pools):
                          crop=224, output=fc)
     frames, h_off, w_off, mirror = _batch(cuda, 2, 4, 240, 256, 224)
     k4, k4_3d, route = COUNTS["k4.launches"], COUNTS["k4.launches.3d"], COUNTS["pool.route"]
+    s2d_launches = COUNTS["s2d.launches"]
     with torch.no_grad():  # as the benchmark's server
         probs = server(frames, h_off=h_off, w_off=w_off, mirror=mirror)
     torch.cuda.synchronize()
     assert torch.isfinite(probs.float()).all()
     assert COUNTS["k4.launches"] - k4 == pools and COUNTS["pool.route"] == route
     assert COUNTS["k4.launches.3d"] == k4_3d  # every ECO pool is 2D
+    assert COUNTS["s2d.launches"] == s2d_launches  # no ECO conv is a 3D stride-2 stem
 
 
 def test_train_step_on_card_matches_cpu(cuda):

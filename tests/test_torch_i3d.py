@@ -2,13 +2,15 @@
 against the plain reference of ``tests/reference_i3d.py`` on seeded random
 weights, and what the port gained for it: asymmetric conv pads (float and
 int8), the input transform and its fold, batch norm folded with its own
-``eps``, 1x1x1 sibling merging, and the ``pool.bytes`` counter.
+``eps``, 1x1x1 sibling merging, the ``pool.bytes`` counter, and the stem
+run as space-to-depth and a stride-1 conv (float and int8).
 
 Tolerance of the whole net in float32: relative L2 of the logits 1e-4, the
 summation order of some 60 layers of convolutions (a bfloat16 program
 misses it fiftyfold: 5.1e-3 on the CPU).
 """
 
+import itertools
 import math
 import sys
 from pathlib import Path
@@ -18,9 +20,17 @@ import torch
 import torch.nn.functional as F
 
 from eco_tpu_torch.apps import UInt8Server
-from eco_tpu_torch.convert import fold_bn, fold_input_transform, optimize_for_inference
+from eco_tpu_torch.convert import (
+    fold_bn,
+    fold_input_transform,
+    fold_space_to_depth,
+    merge_sibling_1x1_convs,
+    optimize_for_inference,
+    quantize_for_serving,
+)
 from eco_tpu_torch.models import get_model
-from eco_tpu_torch.ops import conv_nd, pool
+from eco_tpu_torch.ops import conv_nd, pool, s2d
+from eco_tpu_torch.ops.preprocess import preprocess_on_device
 from eco_tpu_torch.ops.qconv import conv_acc_reference
 from eco_tpu_torch.ops.quant import conv_nd_int8, quantize_act
 from eco_tpu_torch.runtime import Program
@@ -128,7 +138,10 @@ def test_program_matches_the_reference_in_float32(weights_and_reference, optimiz
         g, p, s = optimize_for_inference(g, p, s)
         types = [l.type for l in g.layers]
         assert "input_transform" not in types and "bn" not in types
-        assert g.layer("Conv3d_1a_7x7").bottoms == ("data",)
+        # the stem reads its clip as space-to-depth cells (fold_space_to_depth)
+        assert g.layer("Conv3d_1a_7x7").bottoms == ("Conv3d_1a_7x7/space_to_depth",)
+        assert g.layer("Conv3d_1a_7x7/space_to_depth").type == "space_to_depth"
+        assert g.layer("Conv3d_1a_7x7/space_to_depth").bottoms == ("data",)
         merged = [l for l in g.layers if l.name.endswith("__merged")]
         widths = dict(ref.MIXED)
         assert len(merged) == 9 and all(l.opt("num_output") == sum(
@@ -365,3 +378,129 @@ def test_merged_i3d_modules_read_their_input_once():
         assert tuple(p2[merged.name]["w"].shape) == (
             widths[0] + widths[1] + widths[3], cin, 1, 1, 1)
     assert math.isclose(1 / 127.5, g.layer("input_transform").opt("scale"))
+
+
+# -- the stem as space-to-depth ------------------------------------------------
+
+# input (N, T, H, W, C), kernel, TF "SAME" pads at stride 2
+S2D_STEMS = {
+    # I3D's stem at 16 frames: (2, 3) on every axis, padded extents odd
+    "i3d_stem_16": ((1, 16, 224, 224, 3), (7, 7, 7), ((2, 3), (2, 3), (2, 3))),
+    # an odd size: symmetric pads, 231 padded
+    "odd_225": ((1, 5, 225, 225, 3), (7, 7, 7), ((3, 3), (3, 3), (3, 3))),
+    "5x5x5_two_channels": ((2, 9, 20, 17, 2), (5, 5, 5), ((2, 2), (1, 2), (2, 2))),
+}
+
+
+def _conv_graph(shape, cout, k, s, p, bias=True):
+    b = NetBuilder("conv")
+    x = b.conv("conv", b.input("data", shape), cout, k=k, s=s, p=p, bias=bias)
+    b.layer("relu", "relu", x, tops=x)
+    return b.build()
+
+
+@pytest.mark.parametrize("case", sorted(S2D_STEMS))
+def test_space_to_depth_fold_equals_the_strided_conv(case):
+    shape, k, pads = S2D_STEMS[case]
+    g = _conv_graph(shape, 16, k, 2, [list(p) for p in pads])
+    p, s = _init(g)
+    g2, p2, s2 = fold_space_to_depth(g, p, s)
+    assert [l.type for l in g2.layers] == ["space_to_depth", "convolution", "relu"]
+    cells, conv = g2.layers[:2]
+    assert cells.bottoms == ("data",) and conv.bottoms == cells.tops
+    assert [tuple(v) for v in cells.opt("pad")] == list(pads)
+    assert conv.opt("kernel_size") == [(kk + 1) // 2 for kk in k] and conv.opt("stride") == 1
+    assert p2["conv"]["w"].shape[1] == cells.opt("channels") >= 8 * shape[-1]
+    assert torch.equal(p2["conv"]["b"], p["conv"]["b"])
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(10))
+    want = _run(g, p, s, x)
+    got = _run(g2, p2, s2, x)
+    assert got.shape == want.shape and _rel(got, want) <= 1e-5
+
+
+LEFT_ALONE = {
+    "2d": ((1, 32, 32, 3), 7, 2),
+    "8_channels": ((1, 6, 16, 16, 8), 7, 2),
+    "stride_1": ((1, 6, 16, 16, 3), 7, 1),
+    "even_kernel": ((1, 6, 16, 16, 3), 4, 2),
+    "3x7x7": ((1, 6, 16, 16, 3), (3, 7, 7), 2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LEFT_ALONE))
+def test_space_to_depth_fold_leaves_other_convs_alone(case):
+    shape, k, stride = LEFT_ALONE[case]
+    g = _conv_graph(shape, 4, k, stride, 1)
+    p, s = _init(g)
+    g2, p2, s2 = fold_space_to_depth(g, p, s)
+    assert g2 is g and p2 is p and s2 is s
+
+
+@pytest.mark.parametrize("model", ["eco_lite_kinetics", "eco_full_kinetics"])
+def test_space_to_depth_fold_leaves_eco_alone(model):
+    """ECO's 7x7/s2 stem is 2D: its optimized graph and params are those of
+    the folds before this one."""
+    g = get_model(model, num_segments=4, batch=1)
+    p, s = Program(g, device="cpu").init(torch.Generator().manual_seed(0),
+                                         {"data": g.inputs["data"]})
+    before = fold_input_transform(*fold_bn(*merge_sibling_1x1_convs(g, p, s)))
+    after = optimize_for_inference(g, p, s)
+    assert after[0].layers == before[0].layers and after[0].inputs == before[0].inputs
+    assert after[1].keys() == before[1].keys()
+    assert all(a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+               for a, b in zip(after[1].values(), before[1].values()))
+    assert "space_to_depth" not in {l.type for l in after[0].layers}
+
+
+def _space_to_depth_by_loops(x, block, pads, channels):
+    """An output cell at a time, an offset at a time, from the unpadded
+    input: the plain version's function without its pad, view or permute."""
+    n, *spatial, c = x.shape
+    cells = [-(-(size + lo + hi) // b) for size, b, (lo, hi) in zip(spatial, block, pads)]
+    out = torch.zeros((n, *cells, channels), dtype=x.dtype)
+    offsets = list(itertools.product(*[range(b) for b in block]))
+    for cell in itertools.product(*[range(m) for m in cells]):
+        for i, off in enumerate(offsets):
+            src = [q * b + o - lo for q, b, o, (lo, _) in zip(cell, block, off, pads)]
+            if all(0 <= v < size for v, size in zip(src, spatial)):
+                out[(slice(None), *cell, slice(i * c, (i + 1) * c))] = x[
+                    (slice(None), *src, slice(None))]
+    return out
+
+
+# extents padded to even and to odd sizes (the last cell then completed
+# with zeros), a 2D block, widths with zero channels, integers
+@pytest.mark.parametrize("shape,block,pads,channels,dtype", [
+    ((2, 5, 6, 7, 3), (2, 2, 2), ((2, 3), (2, 4), (2, 3)), 24, torch.float32),
+    ((1, 4, 5, 3, 2), (2, 2, 2), ((0, 0), (1, 0), (0, 1)), 32, torch.bfloat16),
+    ((2, 7, 6, 3), (2, 2), ((3, 4), (1, 1)), 16, torch.float32),
+    ((1, 3, 4, 5, 3), (2, 2, 2), ((1, 0), (0, 0), (2, 1)), 24, torch.int8),
+    ((1, 4, 4, 4, 1), (2, 2, 2), ((1, 0), (0, 1), (2, 3)), 8, torch.float32),
+])
+def test_plain_space_to_depth_equals_loops(shape, block, pads, channels, dtype):
+    x = torch.randint(-100, 100, shape, generator=torch.Generator().manual_seed(11)).to(dtype)
+    got = s2d.space_to_depth(x, block, pads, channels)
+    assert got.is_contiguous() and got.dtype == dtype
+    assert torch.equal(got, _space_to_depth_by_loops(x, block, pads, channels))
+    assert tuple(got.shape) == s2d.out_shape(x.shape, block, pads, channels)
+    assert s2d.space_to_depth(x.to("meta"), block, pads, channels).shape == got.shape
+
+
+def test_int8_path_runs_on_the_folded_graph(weights_and_reference):
+    """``quantize_for_serving`` of the optimized graph, as the benchmark's
+    control quantizes it: the stem is an int8 conv reading the
+    space-to-depth cells, which the int8 input plane feeds int8."""
+    params, state, (frames, h_off, w_off, mirror), want = weights_and_reference
+    g, p, s = optimize_for_inference(
+        get_model("i3d_rgb_kinetics", num_frames=16, crop_size=224, batch=2), params, state)
+    clips = preprocess_on_device(frames, h_off, w_off, mirror, crop=224, mean=MEAN,
+                                 out_dtype=torch.float32)
+    qprog, qp, qs, report = quantize_for_serving(Program(g, device="cpu"), p, s,
+                                                 [{"data": clips}], fold=False)
+    stem = qprog.graph.layer("Conv3d_1a_7x7")
+    assert stem.type == "qconvolution" and stem.bottoms == ("Conv3d_1a_7x7/space_to_depth",)
+    server = UInt8Server(qprog, qp, qs, crop=224, mean=MEAN, output="averaged_logits")
+    assert server.in_scale is not None
+    with torch.no_grad():
+        got = server(frames, h_off=h_off, w_off=w_off, mirror=mirror)
+    assert got.shape == want.shape and torch.isfinite(got).all()

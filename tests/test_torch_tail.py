@@ -503,8 +503,9 @@ def test_layer_matches_jax(case):
 
 
 # layer types the port has and the reference does not: I3D's input transform
-# (held to tests/reference_i3d.py by tests/test_torch_i3d.py)
-PORT_ONLY = {"input_transform"}
+# (held to tests/reference_i3d.py by tests/test_torch_i3d.py) and the
+# space-to-depth its optimized stem reads (tests/test_torch_i3d.py too)
+PORT_ONLY = {"input_transform", "space_to_depth"}
 
 
 def test_every_reference_layer_has_an_equivalent():
