@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from eco_tpu_torch.convert.caffemodel import load_caffemodel
 from eco_tpu_torch.spec.graph import GraphSpec, LayerSpec
 from eco_tpu_torch.ops.norm import DEFAULT_EPS
+from eco_tpu_torch.runtime.executor import input_scales
 from eco_tpu_torch.utils.shapes import caffe_conv_out_dim, conv_pads, normalize_spatial_param
 
 
@@ -201,13 +202,15 @@ def fold_input_transform(graph: GraphSpec, params: Mapping, state: Mapping):
     convolution (not transposed, one group) into their weights; returns
     (new_graph, new_params, state).
 
-    The layer computes ``y[..., i] = scale * x[..., channel_order[i]]``, so
-    a convolution of ``y`` is the convolution of ``x`` whose weights take
-    input channel ``channel_order[i]`` from ``scale * w[:, i]``.  Exact with
-    any zero padding of the convolution: the layer maps zero to zero, so a
-    padded cell is the same in both domains.  A transform with any other
-    consumer stays a layer.
+    The layer computes ``y[..., i] = scale[i] * x[..., channel_order[i]]``
+    (one scale for all channels, or one a channel), so a convolution of
+    ``y`` is the convolution of ``x`` whose weights take input channel
+    ``channel_order[i]`` from ``scale[i] * w[:, i]``.  Exact with any zero
+    padding of the convolution: the layer maps zero to zero, so a padded
+    cell is the same in both domains.  A transform with any other consumer
+    stays a layer.
     """
+
     new_params = {k: dict(v) for k, v in params.items()}
     consumers: dict[str, list[LayerSpec]] = {}
     for l in graph.layers:
@@ -224,11 +227,11 @@ def fold_input_transform(graph: GraphSpec, params: Mapping, state: Mapping):
                 or int(c.opt("group", 1)) != 1 or c.bottoms != l.tops for c in readers):
             continue
         order = torch.as_tensor([int(i) for i in l.opt("channel_order")])
-        scale = float(l.opt("scale", 1.0))
+        scale = torch.tensor(input_scales(l, len(order)))
         for c in readers:
             w = new_params[c.name]["w"].float()
             folded = torch.empty_like(w)
-            folded[:, order] = w * scale
+            folded[:, order] = w * scale.to(w.device).view((1, -1) + (1,) * (w.ndim - 2))
             new_params[c.name]["w"] = folded
             rename[(c.name, l.tops[0])] = l.bottoms[0]
         drop.add(l.name)

@@ -1,9 +1,11 @@
+from eco_tpu_torch.ops.attention import pad_tokens, patch_merging, window_attention
 from eco_tpu_torch.ops.conv import conv2d, conv3d, conv_nd
 from eco_tpu_torch.ops.elementwise import (
     bnll,
     concat_channels,
     dropout,
     eltwise,
+    gelu,
     lrn,
     mvn,
     relu,
@@ -31,7 +33,13 @@ from eco_tpu_torch.ops.loss import (
     softmax_cross_entropy,
     topk_accuracy,
 )
-from eco_tpu_torch.ops.norm import bn_inference, bn_train, fold_scale_shift, scale_shift
+from eco_tpu_torch.ops.norm import (
+    bn_inference,
+    bn_train,
+    fold_scale_shift,
+    layer_norm,
+    scale_shift,
+)
 from eco_tpu_torch.ops.pool import (
     avg_pool,
     global_avg_pool,

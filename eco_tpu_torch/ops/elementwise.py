@@ -1,4 +1,4 @@
-"""ReLU, dropout, eltwise, channel concat, and the pointwise and
+"""ReLU, GELU, dropout, eltwise, channel concat, and the pointwise and
 normalizing tail: threshold, BNLL, MVN and LRN
 (twin of ``eco_tpu/ops/elementwise.py``).
 
@@ -17,6 +17,12 @@ def relu(x: torch.Tensor, negative_slope: float = 0.0) -> torch.Tensor:
     if negative_slope:
         return torch.where(x >= 0, x, negative_slope * x)
     return torch.relu(x)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The exact GELU, ``x * Phi(x)`` by erf (``nn.GELU``'s default), computed
+    in f32 inside the op for a low-precision ``x``."""
+    return torch.nn.functional.gelu(x)
 
 
 def dropout(x: torch.Tensor, rate: float, *, train: bool = False,

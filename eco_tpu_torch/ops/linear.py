@@ -16,7 +16,8 @@ from eco_tpu_torch.utils.tracing import span
 
 
 def inner_product(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None):
-    """x: (N, D_in); w: (D_out, D_in); b: (D_out,)."""
+    """x: (..., D_in), the rows of the product along its leading axes;
+    w: (D_out, D_in); b: (D_out,)."""
     with span("eco.cast"):
         w = w.to(x.dtype)
     y = F.linear(x, w)

@@ -1,5 +1,5 @@
-"""Batch norm, inference and train, and per-channel affine
-(twin of ``eco_tpu/ops/norm.py``).
+"""Batch norm, inference and train, per-channel affine
+(twin of ``eco_tpu/ops/norm.py``), and the port's layer norm.
 
 All math runs in f32 on the channel-last axis and is cast back to the input
 type, as in the reference.  Train mode is Caffe's BN layer
@@ -67,3 +67,12 @@ def bn_train(x, gamma, beta, running_mean, running_var, *, eps: float = DEFAULT_
 def scale_shift(x, scale, shift):
     """Per-channel affine (the Scale layer that stands in for unfoldable BNs)."""
     return (x.float() * scale + shift).to(x.dtype)
+
+
+def layer_norm(x, gamma, beta, *, eps: float = DEFAULT_EPS):
+    """Layer norm over the last (channel) axis of each token: its mean and
+    variance in f32, the result cast back to ``x``'s type (``F.layer_norm``
+    accumulates a low-precision input in f32); ``gamma`` and ``beta`` are
+    cast to that type."""
+    c = x.shape[-1]
+    return torch.nn.functional.layer_norm(x, (c,), gamma.to(x.dtype), beta.to(x.dtype), eps)

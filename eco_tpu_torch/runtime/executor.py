@@ -174,8 +174,13 @@ class _Conv(LayerImpl):
 
 
 class _InnerProduct(LayerImpl):
+    """InnerProduct; with ``per_token`` (the port's option, not Caffe's) the
+    product runs over the physical last axis, the channels of each token,
+    with every other axis a row: a transformer's token-wise linear, which
+    keeps the blob's shape but for its channels."""
+
     def param_specs(self, spec, in_shapes):
-        din = math.prod(in_shapes[0][1:])
+        din = in_shapes[0][-1] if _per_token(spec) else math.prod(in_shapes[0][1:])
         dout = int(spec.opt("num_output"))
         out = {"w": ((dout, din), spec.opt("weight_filler", {"type": "xavier"}))}
         if spec.opt("bias_term", True):
@@ -183,12 +188,25 @@ class _InnerProduct(LayerImpl):
         return out
 
     def apply(self, spec, params, state, inputs, ctx):
-        return [ops.inner_product(_flatten(inputs[0]), params["w"], params.get("b"))]
+        return [_rows(spec, ops.inner_product, inputs[0], params["w"], params.get("b"))]
 
 
 def _flatten(x):
     # Caffe flattens trailing axes in *logical* order.
     return ops.to_logical(x).reshape(x.shape[0], -1) if x.ndim > 2 else x
+
+
+def _per_token(spec) -> bool:
+    return bool(spec.opt("per_token", False))
+
+
+def _rows(spec, fn, x, *args, **kwargs):
+    """``fn`` of an InnerProduct's rows: the tokens (every axis but the
+    last) with ``per_token``, else each item's flattened blob."""
+    if not _per_token(spec):
+        return fn(_flatten(x), *args, **kwargs)
+    y = fn(x.reshape(-1, x.shape[-1]), *args, **kwargs)
+    return y.view(*x.shape[:-1], y.shape[-1])
 
 
 def _q_param_specs(base: dict) -> dict:
@@ -246,9 +264,9 @@ class _QInnerProduct(LayerImpl):
 
     def apply(self, spec, params, state, inputs, ctx):
         _serving_only(spec, ctx)
-        return [ops.inner_product_int8(
-            _flatten(inputs[0]), params["w"], params["w_scale"], params.get("b"),
-            act_scale=float(spec.opt("act_scale")),
+        return [_rows(
+            spec, ops.inner_product_int8, inputs[0], params["w"], params["w_scale"],
+            params.get("b"), act_scale=float(spec.opt("act_scale")),
             out_scale=_out_scale(spec), out_dtype=ctx.compute_dtype,
         )]
 
@@ -360,17 +378,30 @@ class _Pooling(LayerImpl):
 
 
 class _InputTransform(LayerImpl):
-    """A channel reorder and a scale, ``y[..., i] = scale * x[...,
-    channel_order[i]]``: what a model trained on other clips than the
-    serving plane's makes of them (I3D: RGB in [-1, 1] from K1's BGR minus
-    127.5).  ``optimize_for_inference`` folds it into the convolutions that
-    read it (``convert.load.fold_input_transform``)."""
+    """A channel reorder and a scale, ``y[..., i] = scale[i] * x[...,
+    channel_order[i]]`` (``scale`` one number for every channel, or one a
+    channel): what a model trained on other clips than the serving plane's
+    makes of them (I3D: RGB in [-1, 1] from K1's BGR minus 127.5; Video
+    Swin: RGB over ImageNet's std from K1's BGR minus ImageNet's mean).
+    ``optimize_for_inference`` folds it into the convolutions that read it
+    (``convert.load.fold_input_transform``)."""
 
     def apply(self, spec, params, state, inputs, ctx):
         x = inputs[0]
+        order = [int(i) for i in spec.opt("channel_order")]
+        scale = input_scales(spec, len(order))
         # a channel at a time: an index tensor would be a copy from the host
-        y = torch.stack([x[..., int(i)] for i in spec.opt("channel_order")], dim=-1)
-        return [y * float(spec.opt("scale", 1.0))]
+        return [torch.stack([x[..., i] * s for i, s in zip(order, scale)], dim=-1)]
+
+
+def input_scales(spec, channels: int) -> list[float]:
+    """An ``input_transform`` layer's scale of each output channel."""
+    s = spec.opt("scale", 1.0)
+    if isinstance(s, (int, float)):
+        return [float(s)] * channels
+    if len(s) != channels:
+        raise ValueError(f"{spec.name!r}: {len(s)} scales for {channels} channels")
+    return [float(v) for v in s]
 
 
 class _SpaceToDepth(LayerImpl):
@@ -382,6 +413,56 @@ class _SpaceToDepth(LayerImpl):
     def apply(self, spec, params, state, inputs, ctx):
         return [ops.space_to_depth(inputs[0], spec.opt("block"), spec.opt("pad"),
                                    spec.opt("channels"))]
+
+
+class _LayerNorm(LayerImpl):
+    """Layer norm over the channels of each token (``ops.layer_norm``)."""
+
+    def param_specs(self, spec, in_shapes):
+        c = in_shapes[0][-1]
+        return {"gamma": ((c,), {"type": "constant", "value": 1.0}),
+                "beta": ((c,), {"type": "constant", "value": 0.0})}
+
+    def apply(self, spec, params, state, inputs, ctx):
+        return [ops.layer_norm(inputs[0], params["gamma"], params["beta"],
+                               eps=float(spec.opt("eps", 1e-5)))]
+
+
+class _WindowPad(LayerImpl):
+    """Zeros at the end of the T, H and W axes of (N, T, H, W, C) tokens,
+    ``pads`` of them, to whole windows (``ops/attention.py:pad_tokens``)."""
+
+    def apply(self, spec, params, state, inputs, ctx):
+        return [ops.pad_tokens(inputs[0], tuple(spec.opt("pads")))]
+
+
+class _WindowAttention(LayerImpl):
+    """Shifted-window multi-head attention of a Video Swin block
+    (``ops/attention.py:window_attention``) over the block's qkv tokens,
+    (N, T, H, W, 3C) -> (N, *size, C); it owns the relative-position bias
+    table of its ``table_window``.  ``window`` and ``shift`` are the
+    block's, clipped to its grid."""
+
+    def param_specs(self, spec, in_shapes):
+        wt, wh, ww = spec.opt("table_window")
+        rows = (2 * wt - 1) * (2 * wh - 1) * (2 * ww - 1)
+        return {"relative_position_bias_table": (
+            (rows, int(spec.opt("heads"))), {"type": "gaussian", "std": 0.02})}
+
+    def apply(self, spec, params, state, inputs, ctx):
+        return [ops.window_attention(
+            inputs[0], params["relative_position_bias_table"], heads=int(spec.opt("heads")),
+            window=tuple(spec.opt("window")), shift=tuple(spec.opt("shift")),
+            table_window=tuple(spec.opt("table_window")), size=tuple(spec.opt("size")))]
+
+
+class _PatchMerging(LayerImpl):
+    """Each 2x2 spatial cell of tokens laid along the channels
+    (``ops/attention.py:patch_merging``), (N, T, H, W, C) -> (N, T, H/2,
+    W/2, 4C); the published layer's norm and reduction follow as layers."""
+
+    def apply(self, spec, params, state, inputs, ctx):
+        return [ops.patch_merging(inputs[0])]
 
 
 class _Dropout(LayerImpl):
@@ -977,6 +1058,11 @@ IMPLS: dict[str, LayerImpl] = {
     "relu": _ReLU(),
     "pooling": _Pooling(),
     "input_transform": _InputTransform(),
+    "layer_norm": _LayerNorm(),
+    "gelu": _Pointwise(ops.gelu),
+    "window_pad": _WindowPad(),
+    "window_attention": _WindowAttention(),
+    "patch_merging": _PatchMerging(),
     "space_to_depth": _SpaceToDepth(),
     "dropout": _Dropout(),
     "eltwise": _Eltwise(),

@@ -21,8 +21,20 @@
   ``pool.route`` (float pools on the card that took
   ``ops/pool.py``'s padded route instead of K4), ``pool.bytes`` (the least
   bytes of every ``ops/pool.py:pool_nd`` call: input read once, output
-  written once).  Take a difference around
-  the stretch of interest.
+  written once), ``attn.flops`` and ``attn.bytes`` (every window attention
+  core of ``ops/attention.py``: twice the multiply-adds of q k^T and of the
+  weights times v, and its least bytes: q, k and v read once, the output
+  written once, the call's gathered bias and mask read once; host
+  arithmetic on shapes).  Take a difference around the stretch of interest.
+
+The spans of the program: ``eco.serve`` and ``eco.serve.h2d``
+(``apps/serving.py``), ``eco.k1`` (``ops/preprocess.py``), ``eco.apply``
+and ``eco.layer.<type>`` (``runtime/executor.py``), ``eco.cast``,
+``eco.bias``, ``eco.layout`` and ``eco.pad`` (``ops/conv.py``,
+``ops/linear.py``, ``ops/layout.py``), ``eco.s2d`` (``ops/s2d.py``), and
+Video Swin's ``eco.window`` (each pad, shift and partition copy and each
+reverse, unshift and crop copy of the windowed attention) and ``eco.attn``
+(its attention core), in ``ops/attention.py``.
 """
 
 from __future__ import annotations

@@ -1094,3 +1094,109 @@ def test_int8_probe_conv_step_equals_plain_version(cuda):
     _, _, xi, wi = int8_probe.matmul_operands(256, cuda)
     step = int8_probe.int8_matmul_step(xi, wi)
     assert torch.equal(step.cpu(), int8_probe.int8_matmul_step(xi.cpu(), wi.cpu()))
+
+
+# -- Video Swin on the card ------------------------------------------------------
+
+SWIN_SMALL = dict(embed_dim=64, depths=[2, 2, 2, 2], num_heads=[2, 4, 8, 16])
+SWIN_MEAN = (103.53, 116.28, 123.675)
+SWIN_STD = (58.395, 57.12, 57.375)
+
+
+def _swin_case(dev, frames=16, crop=112, n=2):
+    """A small Video Swin (head dimension 32, the published window), its
+    reference's weights on ``dev``, smooth frames and the f32 reference's
+    logits with TF32 off: stage grids (8, 28, 28) ... (8, 4, 4), shifted
+    and masked windows in the first two stages, clipped ones after."""
+    import reference_video_swin as ref
+    from portbench import load
+
+    cfg = dict(num_classes=400, num_segments=frames, crop_size=crop, mean_bgr=list(SWIN_MEAN),
+               std_rgb=list(SWIN_STD), **SWIN_SMALL)
+    net = ref.net(cfg)
+    g = torch.Generator().manual_seed(2**31 + 29)
+    params = {}
+    for s in ref.param_specs(net, cfg)[0]:
+        u = torch.rand(s.shape, generator=g)
+        v = (-s.laplace * (u - 0.5).sign() * torch.log1p(-2 * (u - 0.5).abs())
+             if s.laplace > 0 else u * (s.high - s.low) + s.low)
+        params.setdefault(s.layer, {})[s.name] = v.to(dev)
+    spec = {"kind": "smooth", "scales": [[4, 5, 1.0], [12, 16, 0.6], [40, 53, 0.35]],
+            "drift": 0.5, "chroma": 0.35, "brightness": [60, 190], "contrast": [8, 64],
+            "noise": 3.0}
+    raw = load.smooth_frames((n, frames, crop + 16, crop + 20, 3), spec,
+                             torch.Generator(device=dev).manual_seed(3), dev)
+    aug = ([5, 11][:n], [0, 17][:n], [1, 0][:n])
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want = ref.forward(net, params, {}, ref.clips(cfg, raw, *aug)).double()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    graph = get_model("video_swin_b_kinetics", num_frames=frames, crop_size=crop, batch=n,
+                      **SWIN_SMALL)
+    return graph, params, raw, aug, want
+
+
+def _rel(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def test_bf16_video_swin_serving_against_the_f32_reference(cuda):
+    """The bf16 program through ``UInt8Server`` on the card: within 0.1 of
+    the f32 reference's logits (bf16 over 8 blocks of random weights, and
+    the bf16 clips' rounding of x - mean), and each attention core on the
+    card once a block."""
+    graph, params, raw, aug, want = _swin_case(cuda)
+    g, p, s = optimize_for_inference(graph, params, {})
+    server = UInt8Server(Program(g, compute_dtype=torch.bfloat16, device=cuda), p, s, crop=112,
+                         mean=SWIN_MEAN, output="cls_head.fc_cls")
+    before = COUNTS["attn.flops"]
+    with torch.no_grad():
+        got = server(raw, h_off=aug[0], w_off=aug[1], mirror=aug[2])
+    assert got.dtype == torch.bfloat16
+    assert COUNTS["attn.flops"] > before
+    assert _rel(got.float().cpu(), want.cpu()) < 0.1
+
+
+def test_f32_video_swin_program_on_the_card_equals_the_reference(cuda):
+    """f32 clips through the f32 program on the card (TF32 off, the library's
+    attention in f32) against the f32 reference on the card: within 1e-4."""
+    graph, params, raw, aug, want = _swin_case(cuda)
+    g, p, s = optimize_for_inference(graph, params, {})
+    clips = preprocess.preprocess_on_device(raw, *aug, crop=112, mean=SWIN_MEAN,
+                                            out_dtype=torch.float32)
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            outs, _ = Program(g, compute_dtype=torch.float32, device=cuda).apply(
+                p, s, {"data": clips}, capture=["cls_head.fc_cls"])
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    assert _rel(outs["cls_head.fc_cls"], want) < 1e-4
+
+
+@pytest.mark.parametrize("shift", [(0, 0, 0), (4, 3, 3)], ids=["plain", "shifted"])
+def test_window_attention_bf16_on_the_card_against_f32(cuda, shift):
+    """The window attention op at stage 1's geometry (2 clips of a 16 x 56 x
+    56 grid, 4 heads, d 32) in bf16 on the card against the op in f32 on
+    the card: within 2e-2 (bf16 inputs and outputs, the softmax in f32
+    inside the fused kernel)."""
+    from eco_tpu_torch.ops import attention
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    qkv = torch.randn((2, 16, 56, 56, 384), generator=g, device=cuda)
+    table = torch.rand((15 * 13 * 13, 4), generator=g, device=cuda) * 2 - 1
+    kw = dict(heads=4, window=(8, 7, 7), shift=shift, table_window=(8, 7, 7),
+              size=(16, 56, 56))
+    flags = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = attention.window_attention(qkv, table, **kw)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flags
+    got = attention.window_attention(qkv.bfloat16(), table, **kw)
+    assert got.dtype == torch.bfloat16 and got.shape == (2, 16, 56, 56, 128)
+    assert _rel(got.float(), want) < 2e-2

@@ -503,9 +503,12 @@ def test_layer_matches_jax(case):
 
 
 # layer types the port has and the reference does not: I3D's input transform
-# (held to tests/reference_i3d.py by tests/test_torch_i3d.py) and the
-# space-to-depth its optimized stem reads (tests/test_torch_i3d.py too)
-PORT_ONLY = {"input_transform", "space_to_depth"}
+# (held to tests/reference_i3d.py by tests/test_torch_i3d.py), the
+# space-to-depth its optimized stem reads (tests/test_torch_i3d.py too) and
+# Video Swin's token layers (held to tests/reference_video_swin.py by
+# tests/test_torch_video_swin.py)
+PORT_ONLY = {"input_transform", "space_to_depth", "layer_norm", "gelu", "window_pad",
+             "window_attention", "patch_merging"}
 
 
 def test_every_reference_layer_has_an_equivalent():
