@@ -6,7 +6,7 @@
 Phases (every failure raises; the exit code is then non-zero):
 
 1. The card's name and power limit (nvidia-smi), and the build of the CUDA
-   kernels ``eco_tpu_torch/csrc/{preprocess,poolfuse,qconv,pool,s2d}.cu``,
+   kernels ``eco_tpu_torch/csrc/{preprocess,poolfuse,qconv,pool,s2d,window_attn}.cu``,
    one nvcc each, started together.
 2. K1 against its plain PyTorch version on the card at the serving shape
    (8, 16, 256, 340, 3) uint8, random in-range offsets and mirrors, from the
@@ -75,7 +75,17 @@ Phases (every failure raises; the exit code is then non-zero):
    the 4x4x4/s1 conv over the cells at 24 and 32 channels; and ECO's 2D
    ``conv1_7x7_s2`` at 512 frames as it is and as a 4x4 conv over 2x2
    cells of 12 or 16 channels (a measurement only: ECO runs no
-   space-to-depth).
+   space-to-depth).  Then Video Swin-B: K6, the window attention, against
+   its plain version (the route: window copies, the gathered bias,
+   ``F.scaled_dot_product_attention``) at each stage's geometry at 12 clips
+   (``SWIN_STAGES``), unshifted and shifted, in bf16, and timed in CUDA
+   graphs beside its bound, the route in bf16 (``library_ms``) and in f32
+   (``plain_ms``), by block and over a request; and full-width Video Swin-B
+   (32 frames, 224 crop) at 2 clips served by the bf16 ``UInt8Server``: K1
+   once a request, K6 once a block (24 a request), K2-K5 never, no
+   ``eco.window`` span and no library attention call in a profiled request,
+   no shifted bias kept, the logits held to an f32 run.  ECO's and I3D's
+   requests launch K6 0 times.
 10. int8 serving of ECO-Lite and of ECO-Full: ``quantize_for_serving`` of the
     optimized graph, calibrated on two batches of K1's f32 clips, served in
     bf16 by ``UInt8Server(int8_input=True)`` (K1 emits int8 into conv1): K1
@@ -235,7 +245,8 @@ from eco_tpu_torch.data import (
 from eco_tpu_torch.models import build_eco_lite, get_model
 from eco_tpu_torch.apps import serving
 from eco_tpu_torch.examples import quantized_serving
-from eco_tpu_torch.ops import _build, pool, poolfuse, poolk, preprocess, qconv, resize, s2d
+from eco_tpu_torch.ops import (_build, attention, pool, poolfuse, poolk, preprocess, qconv,
+                               resize, s2d)
 from eco_tpu_torch.ops.conv import conv_nd
 from eco_tpu_torch.parallel import (
     DATA_AXIS,
@@ -317,6 +328,24 @@ I3D_MEAN = (127.5, 127.5, 127.5)
 I3D_STEM, I3D_STEM_PADS = "Conv3d_1a_7x7", ((2, 3), (2, 3), (2, 3))
 K5_ODD = ((2, 16, 225, 225, 3), ((2, 3), (3, 3), (3, 3)))
 STEM_GRAPH_CALLS = 10  # calls a CUDA graph when the stems are timed
+# Video Swin-B's window attention at the benchmark's 12 clips: each stage's
+# token grid, heads, its shifted blocks' shift and how many blocks of a
+# request run it unshifted and as many shifted (K6 is held and timed at
+# each); full-width serving at 2 clips
+SWIN_MODEL, SWIN_FC, SWIN_FRAMES = "video_swin_b_kinetics", "cls_head.fc_cls", 32
+SWIN_MEAN = (103.53, 116.28, 123.675)
+SWIN_CLIPS, SWIN_SERVE_CLIPS, SWIN_WINDOW = 12, 2, (8, 7, 7)
+SWIN_STAGES = {
+    "stage1": ((16, 56, 56), 4, (4, 3, 3), 1),
+    "stage2": ((16, 28, 28), 8, (4, 3, 3), 1),
+    "stage3": ((16, 14, 14), 16, (4, 3, 3), 9),
+    "stage4": ((16, 7, 7), 32, (4, 0, 0), 1),
+}
+# K6 against the route, both bf16 (each ~5e-3 off the route in f32)
+K6_REL_L2_BOUND = 1e-2
+# full-width Swin's bf16 logits against f32 (24 blocks of random weights)
+SWIN_BF16_LOGITS_REL_L2_BOUND = 0.1
+BF16_FLOPS_PER_S = 989e12
 # every pool of I3D-RGB at 64 x 224 x 224, which K4 takes in serving: (T, H,
 # W, C) of a clip, kernel, stride and pad (t, h, w), mode, and how often a
 # request runs it; held and timed at BATCH clips (the card tests and the
@@ -702,10 +731,11 @@ def serve_float(dev, card: str, model: str, fc: str, reqs):
     if k4 != K4_PER_REQUEST[model] * len(reqs) or route:
         raise AssertionError(f"{model} serving launched K4 {k4} times and took the pool "
                              f"route {route} times for {len(reqs)} requests")
-    if COUNTS["s2d.launches"]:
-        raise AssertionError(f"{model} serving launched K5 {COUNTS['s2d.launches']} times")
+    if COUNTS["s2d.launches"] or COUNTS["k6.launches"]:
+        raise AssertionError(f"{model} serving launched K5 {COUNTS['s2d.launches']} and K6 "
+                             f"{COUNTS['k6.launches']} times")
     print(f"{model} serving: K4 {k4} launches, {k4 / len(reqs):g} a request; "
-          f"the pool route none; K5 none")
+          f"the pool route none; K5 and K6 none")
     print(f"{model} serving: {len(reqs)} requests ({BATCH} videos each), K1 launches "
           f"{launches[0]}; peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
           f"{card}")
@@ -732,7 +762,7 @@ def serve_float(dev, card: str, model: str, fc: str, reqs):
 
 def _reset_counts():
     for k in ("k1.launches", "k2.launches", "k3.launches", "k4.launches", "k4.launches.3d",
-              "pool.route", "pool.bytes", "s2d.launches"):
+              "pool.route", "pool.bytes", "s2d.launches", "k6.launches"):
         COUNTS[k] = 0
 
 
@@ -812,6 +842,8 @@ def serve_i3d(dev, card: str) -> dict:
     k5 = COUNTS["s2d.launches"]
     want = (len(reqs), 0, 0, pools * len(reqs), _i3d_pools(path3d=True) * len(reqs), 0,
             len(reqs))
+    if COUNTS["k6.launches"]:
+        raise AssertionError(f"{I3D_MODEL} serving launched K6 {COUNTS['k6.launches']} times")
     if pools != _i3d_pools() or (k1, k2, k3, k4, k4_3d, route, k5) != want:
         raise AssertionError(f"{I3D_MODEL} serving launched K1, K2, K3, K4, K4 in 3D "
                              f"{(k1, k2, k3, k4, k4_3d)} times, took the pool route "
@@ -919,6 +951,136 @@ def check_s2d_kernel(dev, card: str, layer) -> dict:
               f"conv's; {card}")
     out["eco_conv1"] = times
     return out
+
+
+def check_window_kernel(dev, card: str) -> dict:
+    """K6 against its plain version (the route) at each Swin-B stage's
+    geometry at SWIN_CLIPS clips, unshifted and shifted, in bf16: within
+    K6_REL_L2_BOUND of the route, and no farther than 1.25x the route from
+    the route in f32 (TF32 off).  Then K6, the route in bf16 (the present
+    window copies and ``F.scaled_dot_product_attention``: ``library_ms``)
+    and the route in f32 (``plain_ms``) timed in CUDA graphs, in turns,
+    beside K6's bound: the larger of ``attn.flops`` at 989 TFLOP/s and
+    ``attn.bytes`` at 3.35 TB/s.  Returns the times by block and summed over
+    a request's 24 blocks."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows, request = {}, {"ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "plain_ms": 0.0}
+    for stage, (grid, heads, shifted, blocks) in SWIN_STAGES.items():
+        qkv32 = torch.randn((SWIN_CLIPS, *grid, 3 * heads * 32), device=dev, generator=gen) * 1.5
+        table = torch.rand((15 * 13 * 13, heads), device=dev, generator=gen) * 2 - 1
+        qkv = qkv32.bfloat16()
+        for shift in ((0, 0, 0), shifted):
+            name = f"{stage}_{'shifted' if any(shift) else 'plain'}"
+            kw = dict(heads=heads, window=SWIN_WINDOW, shift=shift, table_window=SWIN_WINDOW,
+                      size=grid)
+            want = attention.window_attention_reference(qkv32, table, **kw)
+            before = COUNTS.copy()
+            got = attention.window_attention(qkv, table, **kw)
+            torch.cuda.synchronize()
+            launched = COUNTS["k6.launches"] - before["k6.launches"]
+            flops = COUNTS["attn.flops"] - before["attn.flops"]
+            moved = COUNTS["attn.bytes"] - before["attn.bytes"]
+            lib = attention.window_attention_reference(qkv, table, **kw)
+            err, lib_err, diff = _rel_l2(got, want), _rel_l2(lib, want), _rel_l2(got, lib)
+            print(f"K6 {name} ({SWIN_CLIPS}, {grid}, {heads} heads) bf16: rel L2 against the "
+                  f"route {diff:.3e} (bound {K6_REL_L2_BOUND}); against the f32 route "
+                  f"{err:.3e}, the route's own {lib_err:.3e}")
+            if launched != 1 or not diff <= K6_REL_L2_BOUND or not err <= 1.25 * lib_err + 1e-4:
+                raise AssertionError(f"K6 at {name}: {launched} launches, rel L2 {diff} against "
+                                     f"the route, {err} against f32 (the route's {lib_err})")
+            del want, got, lib
+            times = _in_turns({
+                "ms": lambda: attention.window_attention(qkv, table, **kw),
+                "library_ms": lambda: attention.window_attention_reference(qkv, table, **kw),
+                "plain_ms": lambda: attention.window_attention_reference(qkv32, table, **kw)})
+            bound, which = _bound_ms(moved, flops, BF16_FLOPS_PER_S)
+            row = {k: t["ms"] for k, t in times.items()}
+            row.update(bound_ms=bound, bound_by=which, tflops=flops / row["ms"] / 1e9)
+            rows[name] = row
+            for k in request:
+                request[k] += blocks * row[k]
+            print(f"K6 {name}, CUDA graphs of {STEM_GRAPH_CALLS} calls: {row['ms']:.4f} ms "
+                  f"({', '.join(f'{v:.4f}' for v in times['ms']['runs'])}), bound "
+                  f"{bound:.4f} ms ({which}), at {bound / row['ms']:.1%} of it, "
+                  f"{row['tflops']:.1f} TFLOP/s; the route bf16 {row['library_ms']:.4f} ms, "
+                  f"f32 {row['plain_ms']:.4f} ms; {card}")
+        del qkv32, qkv
+    print(f"K6 over a Swin-B request of {SWIN_CLIPS} clips (24 blocks): {request['ms']:.3f} ms "
+          f"against a bound of {request['bound_ms']:.3f} ms "
+          f"({request['bound_ms'] / request['ms']:.1%}); the route bf16 "
+          f"{request['library_ms']:.3f} ms, f32 {request['plain_ms']:.3f} ms; {card}")
+    return {"by_block": rows, "request": request}
+
+
+def serve_swin(dev, card: str) -> dict:
+    """Full-width Video Swin-B (400 classes, 32 frames, 224 crop) at
+    SWIN_SERVE_CLIPS clips with seeded random weights, optimized for
+    inference, served by the bf16 ``UInt8Server`` with ImageNet's mean:
+    REQUESTS requests, K1 once a request, K6 once a block (24 a request),
+    K2-K5 never; one more request under the profiler makes no
+    ``eco.window`` span and no library attention call, and no shifted bias
+    is kept.  The bf16 logits are held to an f32 run of the same server
+    (TF32 off), which takes the route.  Returns K1's and K6's launches."""
+    t0 = time.perf_counter()
+    graph = get_model(SWIN_MODEL, batch=SWIN_SERVE_CLIPS, num_frames=SWIN_FRAMES, crop_size=CROP)
+    params, state = Program(graph, device=dev).init(
+        torch.Generator().manual_seed(SEED), {"data": graph.inputs["data"]})
+    g_opt, p_opt, s_opt = optimize_for_inference(graph, params, state)
+    blocks = sum(layer.type == "window_attention" for layer in g_opt.layers)
+    server = UInt8Server(Program(g_opt, device=dev), p_opt, s_opt, crop=CROP, mean=SWIN_MEAN)
+    torch.cuda.synchronize()
+    print(f"{SWIN_MODEL} setup: {len(server.program.exec_layers)} layers after optimize "
+          f"({blocks} window attention blocks), {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator().manual_seed(SEED + 7)
+    n = SWIN_SERVE_CLIPS
+    reqs = [(torch.randint(0, 256, (n, SWIN_FRAMES, HEIGHT, WIDTH, 3), dtype=torch.uint8,
+                           generator=gen).pin_memory(),
+             dict(h_off=torch.randint(0, HEIGHT - CROP + 1, (n,), generator=gen),
+                  w_off=torch.randint(0, WIDTH - CROP + 1, (n,), generator=gen),
+                  mirror=torch.randint(0, 2, (n,), generator=gen).bool()))
+            for _ in range(REQUESTS)]
+    _reset_counts()
+    outs = [server(frames, **aug).float() for frames, aug in reqs]
+    k1, k2, k3 = _counts()
+    k4, route = _pool_counts()
+    got = (k1, k2, k3, k4, route, COUNTS["s2d.launches"], COUNTS["k6.launches"])
+    if blocks != 24 or got != (len(reqs), 0, 0, 0, 0, 0, blocks * len(reqs)):
+        raise AssertionError(f"{SWIN_MODEL} serving launched K1, K2, K3, K4, the pool route, "
+                             f"K5, K6 {got} times for {len(reqs)} requests of {blocks} blocks")
+    for probs in outs:
+        worst = (probs.sum(-1) - 1).abs().max().item()
+        if tuple(probs.shape) != (n, NUM_CLASSES) or not torch.isfinite(probs).all() \
+                or worst > PROBS_SUM_TOL:
+            raise AssertionError(f"{SWIN_MODEL} probabilities {tuple(probs.shape)}, rows sum "
+                                 f"to 1 +- {worst}")
+    cached = len(attention._BIAS)
+    with torch.profiler.profile() as prof:
+        server(reqs[0][0], **reqs[0][1])
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events()}
+    library = sorted(n for n in names if "scaled_dot_product" in n)
+    if "eco.window" in names or library or len(attention._BIAS) != cached:
+        raise AssertionError(f"{SWIN_MODEL} request: eco.window {'eco.window' in names}, "
+                             f"library attention {library}, biases kept {cached} -> "
+                             f"{len(attention._BIAS)}")
+    print(f"{SWIN_MODEL} serving: {len(reqs)} requests ({n} clips of {SWIN_FRAMES} frames), "
+          f"K1 {k1}, K6 {got[-1]} ({blocks} a request), K2-K5 none; a profiled request: no "
+          f"eco.window span, no library attention, no bias kept; peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; {card}")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    frames, aug = reqs[1]
+    logits32 = UInt8Server(Program(g_opt, compute_dtype=torch.float32, device=dev), p_opt, s_opt,
+                           crop=CROP, mean=SWIN_MEAN, output=SWIN_FC)(frames, **aug)
+    logits16 = UInt8Server(Program(g_opt, device=dev), p_opt, s_opt, crop=CROP, mean=SWIN_MEAN,
+                           output=SWIN_FC)(frames, **aug)
+    rel = _rel_l2(logits16, logits32)
+    print(f"{SWIN_MODEL} logits bf16 (K6) vs f32 (the route; TF32 off): rel L2 {rel:.6f} "
+          f"(bound {SWIN_BF16_LOGITS_REL_L2_BOUND})")
+    if not rel <= SWIN_BF16_LOGITS_REL_L2_BOUND:
+        raise AssertionError(f"{SWIN_MODEL} bf16 logits off f32 by rel L2 {rel}")
+    return {"k1": k1, "k6": got[-1]}
 
 
 def _in_turns(fns: dict) -> dict:
@@ -3302,13 +3464,14 @@ def main() -> None:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    _build.build_all(["preprocess", "poolfuse", "qconv", "pool", "s2d"])
+    _build.build_all(["preprocess", "poolfuse", "qconv", "pool", "s2d", "window_attn"])
     preprocess.build_kernel()
     poolfuse.build_kernel()
     qconv.build_kernel()
     poolk.build_kernel()
     s2d.build_kernel()
-    print(f"K1-K5 build (five nvcc together) and load: "
+    attention.build_kernel()
+    print(f"K1-K6 build (six nvcc together) and load: "
           f"{time.perf_counter() - t0:.2f} s")
 
     checked = check_kernel(dev, card)
@@ -3331,6 +3494,8 @@ def main() -> None:
     i3d = serve_i3d(dev, card)
     pool4_i3d = check_pool4_i3d(dev, card)
     s2d_checked = check_s2d_kernel(dev, card, i3d["s2d_layer"])
+    k6_checked = check_window_kernel(dev, card)
+    swin = serve_swin(dev, card)
     k1_int8_lite, k3_int8_lite, server, int8_lite = serve_int8(
         dev, card, "eco_lite_kinetics", "fc8", lite + (lite_logits16,), reqs)
     timed = {}
@@ -3357,7 +3522,7 @@ def main() -> None:
         if name in sys.modules:
             raise AssertionError(f"the port imported {name}")
     k1_paths = {"serve": k1_serve, "train": k1_train, "test": k1_test,
-                "serve_full": k1_full, "serve_i3d": i3d["k1"],
+                "serve_full": k1_full, "serve_i3d": i3d["k1"], "serve_swin": swin["k1"],
                 "serve_int8_lite": k1_int8_lite, "serve_int8_full": k1_int8_full,
                 **online_counts["k1"], **k1_e2e, "remat": remat["k1"], **cli_counts["k1"],
                 **tail["k1"], **parallel["k1"], **probe["k1"]}
@@ -3422,6 +3587,19 @@ def main() -> None:
             # serve_float raises unless ECO's requests launched K5 0 times
             "launches_by_path": {"serve": 0, "serve_full": 0, "serve_i3d": i3d["k5"]},
             **s2d_checked,
+        },
+        {
+            "name": "window_attention",
+            "route": "cuda",
+            "source": "eco_tpu_torch/csrc/window_attn.cu",
+            "replaces": "none: ops/attention.py's route on the card (window copies, gathered "
+                        "bias, F.scaled_dot_product_attention)",
+            "launches": swin["k6"],
+            # serve_float and serve_i3d raise unless their requests launched K6 0 times
+            "launches_by_path": {"serve": 0, "serve_full": 0, "serve_i3d": 0,
+                                 "serve_swin": swin["k6"]},
+            "launches_per_request": {"serve_swin": swin["k6"] / REQUESTS},
+            **k6_checked,
         },
     ]
     print(json.dumps({"kernels": records}))

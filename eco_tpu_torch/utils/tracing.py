@@ -17,15 +17,16 @@
   and ``k4.launches`` (launches of the hand-written kernels of
   ``ops/preprocess.py``, ``ops/poolfuse.py``, ``ops/qconv.py`` and
   ``ops/poolk.py``), ``k4.launches.3d`` (those of K4's 3D path),
-  ``s2d.launches`` (those of K5, ``ops/s2d.py``),
+  ``s2d.launches`` (those of K5, ``ops/s2d.py``), ``k6.launches`` (those of
+  K6, the window attention of ``ops/attention.py``),
   ``pool.route`` (float pools on the card that took
   ``ops/pool.py``'s padded route instead of K4), ``pool.bytes`` (the least
   bytes of every ``ops/pool.py:pool_nd`` call: input read once, output
   written once), ``attn.flops`` and ``attn.bytes`` (every window attention
-  core of ``ops/attention.py``: twice the multiply-adds of q k^T and of the
-  weights times v, and its least bytes: q, k and v read once, the output
-  written once, the call's gathered bias and mask read once; host
-  arithmetic on shapes).  Take a difference around the stretch of interest.
+  core of ``ops/attention.py``, K6 or the route: twice the multiply-adds of
+  q k^T and of the weights times v, and its least bytes: q, k and v read
+  once, the output written once, the route's gathered bias and mask read
+  once; host arithmetic on shapes).  Take a difference around the stretch of interest.
 
 The spans of the program: ``eco.serve`` and ``eco.serve.h2d``
 (``apps/serving.py``), ``eco.k1`` (``ops/preprocess.py``), ``eco.apply``
@@ -33,8 +34,9 @@ and ``eco.layer.<type>`` (``runtime/executor.py``), ``eco.cast``,
 ``eco.bias``, ``eco.layout`` and ``eco.pad`` (``ops/conv.py``,
 ``ops/linear.py``, ``ops/layout.py``), ``eco.s2d`` (``ops/s2d.py``), and
 Video Swin's ``eco.window`` (each pad, shift and partition copy and each
-reverse, unshift and crop copy of the windowed attention) and ``eco.attn``
-(its attention core), in ``ops/attention.py``.
+reverse, unshift and crop copy of the windowed attention's route; K6 makes
+none) and ``eco.attn`` (its attention core: K6's launch or the route's
+library call), in ``ops/attention.py``.
 """
 
 from __future__ import annotations

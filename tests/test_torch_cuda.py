@@ -1,4 +1,4 @@
-"""eco_tpu_torch on a CUDA device: the hand-written kernels (K1-K5)
+"""eco_tpu_torch on a CUDA device: the hand-written kernels (K1-K6)
 against their plain versions, the serving path and a train step on the
 card against the same on the CPU, and the world-1 NCCL data-parallel step
 against the plain one.
@@ -1200,3 +1200,175 @@ def test_window_attention_bf16_on_the_card_against_f32(cuda, shift):
     got = attention.window_attention(qkv.bfloat16(), table, **kw)
     assert got.dtype == torch.bfloat16 and got.shape == (2, 16, 56, 56, 128)
     assert _rel(got.float(), want) < 2e-2
+
+
+# -- K6: the window attention kernel -----------------------------------------------
+
+# Swin-B's stage geometries at 2 clips: grid, heads, the shifted block's shift
+SWIN_B_STAGES = {
+    "stage1": ((16, 56, 56), 4, (4, 3, 3)),
+    "stage2": ((16, 28, 28), 8, (4, 3, 3)),
+    "stage3": ((16, 14, 14), 16, (4, 3, 3)),
+    "stage4": ((16, 7, 7), 32, (4, 0, 0)),
+}
+
+
+def _k6_case(dev, grid, heads, table_window=(8, 7, 7), n=2, seed=6):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn((n, *grid, 3 * heads * 32), generator=g, device=dev) * 1.5
+    rows = (2 * table_window[0] - 1) * (2 * table_window[1] - 1) * (2 * table_window[2] - 1)
+    table = torch.rand((rows, heads), generator=g, device=dev) * 2 - 1
+    return qkv, table
+
+
+def _k6_against_the_route(qkv, table, dtype, **kw):
+    """K6 and the route in ``dtype``, each against the route in f32 (TF32
+    off); K6 must launch once and come within 1.25x the route's own error
+    plus 1e-4, and within 1e-2 (bf16) / 1.5e-3 (f16) of the route."""
+    from eco_tpu_torch.ops import attention
+
+    flags = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = attention.window_attention_reference(qkv, table, **kw)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flags
+    x = qkv.to(dtype)
+    before = COUNTS.copy()
+    got = attention.window_attention(x, table, **kw)
+    torch.cuda.synchronize()
+    counts = {k: COUNTS[k] - before[k] for k in ("k6.launches", "attn.flops", "attn.bytes")}
+    assert counts["k6.launches"] == 1
+    before = COUNTS.copy()
+    lib = attention.window_attention_reference(x, table, **kw)
+    # the same work counted, whichever route runs
+    assert {k: COUNTS[k] - before[k] for k in ("attn.flops", "attn.bytes")} == {
+        k: counts[k] for k in ("attn.flops", "attn.bytes")}
+    assert got.dtype == dtype and got.shape == lib.shape
+    err, lib_err = _rel(got.float(), want), _rel(lib.float(), want)
+    assert err <= 1.25 * lib_err + 1e-4, (err, lib_err)
+    assert _rel(got.float(), lib.float()) < (1e-2 if dtype == torch.bfloat16 else 1.5e-3)
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+@pytest.mark.parametrize("shifted", [False, True], ids=["plain", "shifted"])
+@pytest.mark.parametrize("stage", sorted(SWIN_B_STAGES))
+def test_k6_equals_the_route_at_swin_b_stages(cuda, stage, shifted, dtype):
+    """K6 at each Swin-B stage's geometry (2 clips, d 32), unshifted and
+    shifted, against the route, with the same counters."""
+    grid, heads, shift = SWIN_B_STAGES[stage]
+    qkv, table = _k6_case(cuda, grid, heads)
+    _k6_against_the_route(qkv, table, dtype, heads=heads, window=(8, 7, 7),
+                          shift=shift if shifted else (0, 0, 0), table_window=(8, 7, 7),
+                          size=grid)
+
+
+@pytest.mark.parametrize("case", ["clipped", "unequal", "padded", "bf16_table"])
+def test_k6_clipped_unequal_and_padded_windows(cuda, case):
+    """K6 with a window clipped below its table window (the bias of the
+    table's first L rows and columns), unequal windows with a shift on two
+    axes, a padded grid cropped by index, and a bf16 table."""
+    grid, window, shift, tw, size, heads = {
+        "clipped": ((8, 4, 4), (8, 4, 4), (4, 0, 0), (8, 7, 7), (8, 4, 4), 2),
+        "unequal": ((6, 8, 10), (2, 4, 5), (1, 0, 2), (3, 4, 5), (6, 8, 10), 3),
+        "padded": ((16, 14, 14), (8, 7, 7), (4, 3, 3), (8, 7, 7), (10, 12, 13), 2),
+        "bf16_table": ((16, 14, 14), (8, 7, 7), (4, 3, 3), (8, 7, 7), (16, 14, 14), 2),
+    }[case]
+    qkv, table = _k6_case(cuda, grid, heads, tw)
+    if case == "bf16_table":
+        table = table.bfloat16()
+    got = _k6_against_the_route(qkv, table, torch.bfloat16, heads=heads, window=window,
+                                shift=shift, table_window=tw, size=size)
+    assert got.shape == (2, *size, heads * 32)
+
+
+@pytest.mark.parametrize("case", ["f32", "grad", "head_width_64", "cpu_table"])
+def test_k6_leaves_what_it_does_not_take_to_the_route(cuda, case):
+    """f32 tokens, a gradient, a head width other than 32 and a table on
+    another device take the route: no K6 launch, the route's result."""
+    from eco_tpu_torch.ops import attention
+
+    heads = 2
+    qkv, table = _k6_case(cuda, (8, 14, 14), heads)
+    if case == "head_width_64":
+        qkv = torch.cat([qkv, qkv], dim=-1)  # 2 heads of 64
+    qkv = qkv if case == "f32" else qkv.bfloat16()
+    if case == "grad":
+        qkv.requires_grad_(True)
+    if case == "cpu_table":
+        table = table.cpu()
+    kw = dict(heads=heads, window=(8, 7, 7), shift=(4, 3, 3), table_window=(8, 7, 7),
+              size=(8, 14, 14))
+    before = COUNTS["k6.launches"]
+    if case == "cpu_table":
+        with pytest.raises(RuntimeError):  # the route too wants the table on the card
+            attention.window_attention(qkv, table, **kw)
+    else:
+        got = attention.window_attention(qkv, table, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, attention.window_attention_reference(qkv, table, **kw))
+    assert COUNTS["k6.launches"] == before
+
+
+def test_k6_entry_refuses_a_geometry_it_does_not_take(cuda):
+    """The C entry point launches nothing and returns cudaErrorInvalidValue
+    (1) for a grid that is not whole windows, a shift not under the window,
+    an output larger than the grid and a misaligned pointer."""
+    from eco_tpu_torch.ops import attention
+
+    qkv, table = _k6_case(cuda, (8, 14, 14), 2)
+    qkv = qkv.bfloat16()
+    out = torch.zeros((2, 8, 14, 14, 64), dtype=torch.bfloat16, device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    ok = (2, 8, 14, 14, 2, 8, 7, 7, 4, 3, 3, 8, 7, 7, 8, 14, 14, 1)
+    call = lambda q, args: attention._kernel()(q, table.data_ptr(), out.data_ptr(), *args,
+                                              stream)
+    assert call(qkv.data_ptr(), ok) == 0
+    torch.cuda.synchronize()
+    for args in (ok[:1] + (8, 14, 13) + ok[4:14] + (8, 14, 13, 1),    # W not whole windows
+                 ok[:8] + (8, 3, 3) + ok[11:],                       # shift = window
+                 ok[:14] + (9, 14, 14, 1)):                          # output over the grid
+        assert call(qkv.data_ptr(), args) == 1
+    assert call(qkv.data_ptr() + 2, ok) == 1
+    torch.cuda.synchronize()
+
+
+def test_k6_in_serving_requests(cuda):
+    """A bf16 Video Swin request through ``UInt8Server`` launches K6 once a
+    block, makes no ``eco.window`` span and no library attention call, and
+    keeps no shifted bias; an ECO request launches K6 0 times."""
+    from eco_tpu_torch.ops import attention
+
+    graph, params, raw, aug, _ = _swin_case(cuda)
+    g, p, s = optimize_for_inference(graph, params, {})
+    blocks = sum(layer.type == "window_attention" for layer in g.layers)
+    server = UInt8Server(Program(g, compute_dtype=torch.bfloat16, device=cuda), p, s, crop=112,
+                         mean=SWIN_MEAN, output="cls_head.fc_cls")
+    cached = len(attention._BIAS)
+    before = COUNTS["k6.launches"]
+    with torch.no_grad(), torch.profiler.profile() as prof:
+        server(raw, h_off=aug[0], w_off=aug[1], mirror=aug[2])
+        torch.cuda.synchronize()
+    assert COUNTS["k6.launches"] - before == blocks == 8, (COUNTS["k6.launches"] - before, blocks)
+    names = {e.name for e in prof.events()}
+    assert "eco.window" not in names and "eco.attn" in names, sorted(names)
+    assert not [n for n in names if "scaled_dot_product" in n or "sdpa" in n], sorted(names)
+    assert len(attention._BIAS) == cached, (len(attention._BIAS), cached)
+
+    graph = get_model("eco_lite_kinetics", batch=2, num_segments=4, crop_size=224)
+    params, state = Program(graph, device="cpu").init(torch.Generator().manual_seed(0),
+                                                      {"data": graph.inputs["data"]})
+    g, p, s = optimize_for_inference(graph, params, state)
+    p = {ln: {k: v.to(cuda) for k, v in d.items()} for ln, d in p.items()}
+    s = {ln: {k: v.to(cuda) for k, v in d.items()} for ln, d in s.items()}
+    server = UInt8Server(Program(g, compute_dtype=torch.bfloat16, device=cuda), p, s, crop=224)
+    frames, h_off, w_off, mirror = _batch(cuda, 2, 4, 240, 256, 224)
+    before = COUNTS["k6.launches"]
+    with torch.no_grad():
+        server(frames, h_off=h_off, w_off=w_off, mirror=mirror)
+    torch.cuda.synchronize()
+    assert COUNTS["k6.launches"] == before
+    # nor has I3D a window attention layer to launch it
+    i3d = get_model("i3d_rgb_kinetics", batch=1, num_frames=16, crop_size=112)
+    assert not any(layer.type == "window_attention" for layer in i3d.layers)

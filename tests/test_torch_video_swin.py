@@ -288,6 +288,104 @@ def test_the_bias_is_gathered_once_per_table():
     assert key not in attention._BIAS
 
 
+# (grid, window, shift, table window): the published shifted and unshifted
+# blocks, a shift on T only (Swin-B's last stage), on H and W only, on one
+# axis only with a window clipped below its table window, and unequal windows
+INDEX_GEOMETRIES = [
+    ((8, 14, 14), (8, 7, 7), (4, 3, 3), (8, 7, 7)),
+    ((16, 14, 14), (8, 7, 7), (0, 0, 0), (8, 7, 7)),
+    ((16, 7, 7), (8, 7, 7), (4, 0, 0), (8, 7, 7)),
+    ((4, 8, 8), (4, 4, 4), (0, 2, 2), (4, 4, 4)),
+    ((8, 8, 8), (8, 4, 4), (0, 2, 0), (8, 7, 7)),
+    ((6, 8, 10), (2, 4, 5), (1, 0, 2), (3, 4, 5)),
+]
+
+
+def _by_index(qkv, table, heads, window, shift, table_window, size):
+    """The window attention as K6 computes it, in float32: q, k and v read
+    from the tokens by ``window_indices``' token, the bias by its offsets,
+    the mask by its regions, each output row written to its token, then the
+    crop."""
+    n, t, h, w, c3 = qkv.shape
+    d = c3 // 3 // heads
+    token, offset, region = attention.window_indices((t, h, w), window, shift, table_window)
+    rows = table.shape[0]
+    rel = offset[:, None] - offset[None, :] + (rows - 1) // 2
+    bias = table.float()[rel].permute(2, 0, 1)                          # heads, L, L
+    mask = torch.where(region[:, :, None] != region[:, None, :], attention.MASK_VALUE, 0.0)
+    x = qkv.float().reshape(n, t * h * w, 3, heads, d)[:, token]        # n, win, L, 3, heads, d
+    q, k, v = x.permute(3, 0, 1, 4, 2, 5)                               # n, win, heads, L, d
+    logits = q @ k.transpose(-1, -2) / math.sqrt(d) + bias + mask[None, :, None]
+    o = logits.softmax(-1) @ v                                          # n, win, heads, L, d
+    out = torch.empty(n, t * h * w, heads, d)
+    out[:, token.reshape(-1)] = o.permute(0, 1, 3, 2, 4).reshape(n, -1, heads, d)
+    return out.view(n, t, h, w, heads * d)[:, :size[0], :size[1], :size[2]]
+
+
+@pytest.mark.parametrize("grid,window,shift,table_window", INDEX_GEOMETRIES)
+def test_window_indices_give_the_routes_order_bias_and_mask(grid, window, shift, table_window):
+    """K6's index arithmetic (``window_indices``) against the route's
+    tensors: the tokens each window position reads (``_window_order``), the
+    relative index (``relative_position_index`` at its first L rows and
+    columns), the gathered bias with the mask (``_gather_bias``), and the
+    mask alone (``shift_mask``)."""
+    length = math.prod(window)
+    token, offset, region = attention.window_indices(grid, window, shift, table_window)
+    assert torch.equal(token.reshape(-1), attention._window_order(grid, window, shift, "cpu"))
+    rows = math.prod(2 * w - 1 for w in table_window)
+    rel = offset[:, None] - offset[None, :] + (rows - 1) // 2
+    assert torch.equal(rel, attention.relative_position_index(table_window)[:length, :length])
+    mask = torch.where(region[:, :, None] != region[:, None, :], attention.MASK_VALUE, 0.0)
+    if any(shift):
+        assert torch.equal(mask, attention.shift_mask(grid, window, shift))
+    else:
+        assert not mask.any()
+    heads = 3
+    table = torch.rand(rows, heads, generator=torch.Generator().manual_seed(5)) * 2 - 1
+    bias = table[rel].permute(2, 0, 1)                                  # heads, L, L
+    want = attention._gather_bias(table, window, table_window, grid, shift)
+    got = (bias[:, None] + mask[None]).flatten(0, 1) if any(shift) else bias
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("grid,window,shift,table_window,size", [
+    ((8, 14, 14), (8, 7, 7), (4, 3, 3), (8, 7, 7), (8, 14, 14)),
+    ((16, 7, 7), (8, 7, 7), (4, 0, 0), (8, 7, 7), (16, 7, 7)),
+    ((8, 8, 8), (8, 4, 4), (0, 2, 0), (8, 7, 7), (8, 8, 8)),
+    ((6, 8, 10), (2, 4, 5), (1, 0, 2), (3, 4, 5), (5, 7, 10)),
+])
+def test_attention_by_index_equals_the_route(grid, window, shift, table_window, size):
+    """The attention computed from ``window_indices`` alone (K6's
+    arithmetic: gather, bias and mask by index, scatter, crop) equals the
+    route's (copies, gathered bias, the library's attention) in float32 on
+    the CPU, also with a clipped window, unequal windows and a crop."""
+    g = torch.Generator().manual_seed(9)
+    heads = 2
+    qkv = torch.randn((2, *grid, 3 * heads * 8), generator=g)
+    table = torch.rand(math.prod(2 * w - 1 for w in table_window), heads, generator=g) * 2 - 1
+    kw = dict(heads=heads, window=window, shift=shift, table_window=table_window, size=size)
+    want = attention.window_attention(qkv, table, **kw)
+    assert _rel(_by_index(qkv, table, **kw), want) <= 1e-5
+
+
+def test_the_cpu_takes_the_route_and_builds_nothing(monkeypatch):
+    """On the CPU ``window_attention`` is the plain route: no nvcc, no K6
+    launch counted."""
+    def no_build(name):
+        raise AssertionError(f"built {name} on the CPU")
+
+    monkeypatch.setattr(attention._build, "load", no_build)
+    g = torch.Generator().manual_seed(4)
+    qkv = torch.randn((1, 8, 14, 14, 3 * 64), generator=g).bfloat16()
+    table = torch.rand(15 * 13 * 13, 2, generator=g)
+    kw = dict(heads=2, window=(8, 7, 7), shift=(4, 3, 3), table_window=(8, 7, 7),
+              size=(8, 14, 14))
+    before = COUNTS["k6.launches"]
+    got = attention.window_attention(qkv, table, **kw)
+    assert COUNTS["k6.launches"] == before
+    assert torch.equal(got, attention.window_attention_reference(qkv, table, **kw))
+
+
 def test_spans_and_counters_of_one_request():
     g = _model(8, 28, batch=1)
     p, s = Program(g, device="cpu").init(torch.Generator().manual_seed(0),
