@@ -2,8 +2,9 @@
 
 The builders hold no framework code; the port keeps its own copy so that it
 never imports ``eco_tpu``.  ``tests/test_torch_spec.py`` holds every builder's
-``graph_to_json`` equal to the reference's.  I3D (``models/i3d.py``) is the
-port's own, held to the plain reference of ``tests/reference_i3d.py``.
+``graph_to_json`` equal to the reference's.  I3D (``models/i3d.py``), Video
+Swin (``models/video_swin.py``) and MViTv2 (``models/mvit.py``) are the
+port's own, each held to its plain reference in ``tests/``.
 """
 
 from eco_tpu_torch.models.eco import build_eco_full, build_eco_lite

@@ -1,6 +1,6 @@
 """Model zoo: the 8 reference configurations (2 families x 4 datasets),
-C3D-ResNet-18 (ECO's 3D head's initialisation), and I3D-RGB and Video
-Swin-B on Kinetics-400, which only this package has.
+C3D-ResNet-18 (ECO's 3D head's initialisation), and I3D-RGB, Video Swin-B
+and MViTv2-B on Kinetics-400, which only this package has.
 
 Class counts and classifier names match the reference prototxts
 (models_ECO_Lite/*/ECO_Lite.prototxt:1858-1881 and models_ECO_Full/*):
@@ -44,6 +44,10 @@ REGISTRY["i3d_rgb_kinetics"] = partial(build_i3d, num_classes=400)
 from eco_tpu_torch.models.video_swin import build_video_swin
 
 REGISTRY["video_swin_b_kinetics"] = partial(build_video_swin, num_classes=400)
+
+from eco_tpu_torch.models.mvit import build_mvit_v2
+
+REGISTRY["mvit_v2_b_kinetics"] = partial(build_mvit_v2, num_classes=400)
 
 
 def get_model(name: str, **overrides):

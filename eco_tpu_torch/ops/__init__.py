@@ -49,6 +49,7 @@ from eco_tpu_torch.ops.pool import (
     stochastic_pool,
 )
 from eco_tpu_torch.ops.poolfuse import fused_maxpool_3x3s2
+from eco_tpu_torch.ops.pooled_attention import pool_skip, pooled_size, prepend_token
 from eco_tpu_torch.ops.preprocess import preprocess_on_device
 from eco_tpu_torch.ops.s2d import space_to_depth
 from eco_tpu_torch.ops.quant import (

@@ -15,7 +15,9 @@ The program is functional: ``apply`` writes nothing into ``params`` or
 the train step's gradient.
 
 Blobs keep the reference's physical layout, channels-last ``(N, *spatial,
-C)`` and contiguous for rank >= 3, ``(N, D)`` for matrices; a layer whose
+C)`` and contiguous for rank >= 3, ``(N, D)`` for matrices; a transformer's
+tokens behind a class token are rows ``(N, 1 + T x H x W, C)``, and the
+layers that need their grid are told its size; a layer whose
 options name a logical Caffe axis (Permute, Reduction, Bias, BatchReduction,
 a generic Concat or Slice) goes through ``ops.to_logical`` and back.  Params
 are in PyTorch's layout: conv ``w`` is ``(C_out, C_in/g, *k)``, deconv ``w``
@@ -463,6 +465,73 @@ class _PatchMerging(LayerImpl):
 
     def apply(self, spec, params, state, inputs, ctx):
         return [ops.patch_merging(inputs[0])]
+
+
+class _ClsToken(LayerImpl):
+    """A grid of tokens (N, T, H, W, C) as rows (N, 1 + T x H x W, C), a
+    learned class token in front (``ops/pooled_attention.py:prepend_token``);
+    it owns the token."""
+
+    def param_specs(self, spec, in_shapes):
+        return {"token": ((in_shapes[0][-1],), {"type": "gaussian", "std": 0.02})}
+
+    def apply(self, spec, params, state, inputs, ctx):
+        return [ops.prepend_token(inputs[0], params["token"])]
+
+
+def _pooled_sizes(spec):
+    """(q's grid, k and v's grid) of a ``pooled_attention`` layer."""
+    kernel = spec.opt("kernel")
+    pad = [k // 2 for k in kernel]
+    size = spec.opt("size")
+    return (ops.pooled_size(size, kernel, spec.opt("stride_q"), pad),
+            ops.pooled_size(size, kernel, spec.opt("stride_kv"), pad))
+
+
+class _PooledAttention(LayerImpl):
+    """MViTv2's pooling attention (``ops/pooled_attention.py``) over a
+    block's qkv rows, (N, 1 + T x H x W, 3C) -> (N, 1 + T' x H' x W', C),
+    the grid ``size`` (T, H, W) pooled to q's by ``stride_q``.  It owns the
+    depthwise pooling kernels and norms of q, k and v (``pool_q.w``,
+    ``norm_q.gamma``, ``norm_q.beta``, ...) and the position tables
+    (``rel_pos_t``, ``rel_pos_h``, ``rel_pos_w``: 2 max(q, k) - 1 rows
+    along each axis)."""
+
+    def param_specs(self, spec, in_shapes):
+        d = in_shapes[0][-1] // 3 // int(spec.opt("heads"))
+        out = {}
+        for s in "qkv":
+            out[f"pool_{s}.w"] = ((d, 1, *spec.opt("kernel")), {"type": "xavier"})
+            out[f"norm_{s}.gamma"] = ((d,), {"type": "constant", "value": 1.0})
+            out[f"norm_{s}.beta"] = ((d,), {"type": "constant", "value": 0.0})
+        for axis, qs, ks in zip("thw", *_pooled_sizes(spec)):
+            out[f"rel_pos_{axis}"] = ((2 * max(qs, ks) - 1, d), {"type": "gaussian", "std": 0.02})
+        return out
+
+    def apply(self, spec, params, state, inputs, ctx):
+        out, _ = ops.pooled_attention.pooled_attention(
+            inputs[0], params, heads=int(spec.opt("heads")), size=tuple(spec.opt("size")),
+            stride_q=tuple(spec.opt("stride_q")), stride_kv=tuple(spec.opt("stride_kv")),
+            kernel=tuple(spec.opt("kernel")), eps=float(spec.opt("eps", 1e-6)))
+        return [out]
+
+
+class _TokenPool(LayerImpl):
+    """The max pool of the grid rows of (N, 1 + T x H x W, C) tokens, the
+    class token passed through (``ops/pooled_attention.py:pool_skip``):
+    MViTv2's skip path where q is strided."""
+
+    def apply(self, spec, params, state, inputs, ctx):
+        return [ops.pool_skip(inputs[0], size=tuple(spec.opt("size")),
+                              kernel=tuple(spec.opt("kernel_size")),
+                              stride=tuple(spec.opt("stride")), pad=tuple(spec.opt("pad")))]
+
+
+class _ClsSelect(LayerImpl):
+    """The class token's row of (N, L, C) rows: (N, C)."""
+
+    def apply(self, spec, params, state, inputs, ctx):
+        return [inputs[0][:, 0].contiguous()]
 
 
 class _Dropout(LayerImpl):
@@ -1063,6 +1132,10 @@ IMPLS: dict[str, LayerImpl] = {
     "window_pad": _WindowPad(),
     "window_attention": _WindowAttention(),
     "patch_merging": _PatchMerging(),
+    "cls_token": _ClsToken(),
+    "pooled_attention": _PooledAttention(),
+    "token_pool": _TokenPool(),
+    "cls_select": _ClsSelect(),
     "space_to_depth": _SpaceToDepth(),
     "dropout": _Dropout(),
     "eltwise": _Eltwise(),

@@ -26,7 +26,14 @@
   core of ``ops/attention.py``, K6 or the route: twice the multiply-adds of
   q k^T and of the weights times v, and its least bytes: q, k and v read
   once, the output written once, the route's gathered bias and mask read
-  once; host arithmetic on shapes).  Take a difference around the stretch of interest.
+  once; host arithmetic on shapes), ``pattn.flops``, ``pattn.bytes`` and
+  ``pattn.bias_bytes`` (every pooled attention core of
+  ``ops/pooled_attention.py``: twice the multiply-adds of q k^T, of the
+  weights times v and of the three relative-position products; its least
+  bytes: q, k and v read once, the output written once, the position
+  tables read once; and the bytes of position columns the route writes for
+  the library's kernel; host arithmetic on shapes).  Take a difference
+  around the stretch of interest.
 
 The spans of the program: ``eco.serve`` and ``eco.serve.h2d``
 (``apps/serving.py``), ``eco.k1`` (``ops/preprocess.py``), ``eco.apply``
@@ -36,7 +43,11 @@ and ``eco.layer.<type>`` (``runtime/executor.py``), ``eco.cast``,
 Video Swin's ``eco.window`` (each pad, shift and partition copy and each
 reverse, unshift and crop copy of the windowed attention's route; K6 makes
 none) and ``eco.attn`` (its attention core: K6's launch or the route's
-library call), in ``ops/attention.py``.
+library call), in ``ops/attention.py``, and MViTv2's ``eco.qkv_pool`` (the
+pooling of q, k and v: the layout copy, the three depthwise convs, the
+class token's concats and the three norms) and ``eco.pattn`` (the core:
+the position columns, the attention, the residual pooling add and the
+merge), in ``ops/pooled_attention.py``.
 """
 
 from __future__ import annotations

@@ -9,6 +9,8 @@ imports no JAX, so it also runs where JAX is not installed:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -1372,3 +1374,129 @@ def test_k6_in_serving_requests(cuda):
     # nor has I3D a window attention layer to launch it
     i3d = get_model("i3d_rgb_kinetics", batch=1, num_frames=16, crop_size=112)
     assert not any(layer.type == "window_attention" for layer in i3d.layers)
+
+
+# -- MViTv2 on the card ------------------------------------------------------------
+
+MVIT_SMALL = dict(embed_dim=96, depth=4, num_heads=1, dim_mul_blocks=[1, 3], kv_stride=[1, 4, 4])
+MVIT_MEAN = (114.75,) * 3
+
+
+def _mvit_case(dev, frames=16, crop=64, n=2):
+    """A small MViTv2 (d 96 in every block; grids (8, 16, 16), (8, 8, 8),
+    (8, 4, 4); keys coarser than queries, equal, and finer), its
+    reference's weights on ``dev``, smooth frames and the f32 reference's
+    logits with TF32 off."""
+    import reference_mvit as ref
+    from portbench import load
+
+    cfg = dict(num_classes=400, num_segments=frames, crop_size=crop, mean_bgr=list(MVIT_MEAN),
+               std_rgb=[57.375] * 3, **MVIT_SMALL)
+    net = ref.net(cfg)
+    g = torch.Generator().manual_seed(2**31 + 25)
+    params = {}
+    for s in ref.param_specs(net, cfg)[0]:
+        u = torch.rand(s.shape, generator=g)
+        v = (-s.laplace * (u - 0.5).sign() * torch.log1p(-2 * (u - 0.5).abs())
+             if s.laplace > 0 else u * (s.high - s.low) + s.low)
+        params.setdefault(s.layer, {})[s.name] = v.to(dev)
+    spec = {"kind": "smooth", "scales": [[4, 5, 1.0], [12, 16, 0.6], [40, 53, 0.35]],
+            "drift": 0.5, "chroma": 0.35, "brightness": [60, 190], "contrast": [8, 64],
+            "noise": 3.0}
+    raw = load.smooth_frames((n, frames, crop + 16, crop + 20, 3), spec,
+                             torch.Generator(device=dev).manual_seed(3), dev)
+    aug = ([5, 11][:n], [0, 17][:n], [1, 0][:n])
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want = ref.forward(net, params, {}, ref.clips(cfg, raw, *aug)).double()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    graph = get_model("mvit_v2_b_kinetics", num_frames=frames, crop_size=crop, batch=n,
+                      **MVIT_SMALL)
+    return graph, params, raw, aug, want
+
+
+def test_bf16_mvit_serving_against_the_f32_reference(cuda):
+    """The bf16 program through ``UInt8Server`` on the card: within 0.1 of
+    the f32 reference's logits (bf16 over 4 blocks of random weights, and
+    the bf16 clips' rounding of x - 114.75); every core counted, the skip
+    pools on K4, the pooling convs on PyTorch's depthwise 3D kernel (not
+    cuDNN's channels-last path, which converts the layout)."""
+    graph, params, raw, aug, want = _mvit_case(cuda)
+    g, p, s = optimize_for_inference(graph, params, {})
+    server = UInt8Server(Program(g, compute_dtype=torch.bfloat16, device=cuda), p, s, crop=64,
+                         mean=MVIT_MEAN, output="head.projection")
+    before = COUNTS.copy()
+    with torch.no_grad(), torch.profiler.profile() as prof:
+        got = server(raw, h_off=aug[0], w_off=aug[1], mirror=aug[2])
+        torch.cuda.synchronize()
+    counts = COUNTS - before
+    assert got.dtype == torch.bfloat16
+    assert counts["pattn.flops"] > 0 and counts["k4.launches"] == 2 and not counts["pool.route"]
+    kernels = {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert any("conv_depthwise3d" in k for k in kernels), sorted(kernels)
+    assert not any("tensorTransform" in k for k in kernels), sorted(kernels)
+    assert _rel(got.float().cpu(), want.cpu()) < 0.1
+
+
+def test_f32_mvit_program_on_the_card_equals_the_reference(cuda):
+    """f32 clips through the f32 program on the card (TF32 off, the
+    library's attention in f32) against the f32 reference on the card:
+    within 1e-4."""
+    graph, params, raw, aug, want = _mvit_case(cuda)
+    g, p, s = optimize_for_inference(graph, params, {})
+    clips = preprocess.preprocess_on_device(raw, *aug, crop=64, mean=MVIT_MEAN,
+                                            out_dtype=torch.float32)
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            outs, _ = Program(g, compute_dtype=torch.float32, device=cuda).apply(
+                p, s, {"data": clips}, capture=["head.projection"])
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    assert _rel(outs["head.projection"], want) < 1e-4
+
+
+@pytest.mark.parametrize("heads,size,stride_q,stride_kv", [
+    (1, (16, 56, 56), (1, 1, 1), (1, 8, 8)),
+    (2, (16, 56, 56), (1, 2, 2), (1, 4, 4)),
+    (8, (16, 14, 14), (1, 2, 2), (1, 1, 1)),
+], ids=["block0", "block2", "block21"])
+def test_pooled_attention_bf16_on_the_card_against_f32(cuda, heads, size, stride_q, stride_kv):
+    """The pooled attention op at MViTv2-B's geometries (2 clips, d 96:
+    keys coarser than queries, both strided, queries coarser) in bf16 on
+    the card against the op in f32 on the card: within 2e-2 (bf16 inputs,
+    position columns and outputs, the softmax in f32 inside the fused
+    kernel)."""
+    from eco_tpu_torch.ops import pooled_attention as pa
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    d, n = 96, 2
+    c = heads * d
+    qkv = torch.randn((n, 1 + math.prod(size), 3 * c), generator=g, device=cuda)
+    q, k = (pa.pooled_size(size, (3, 3, 3), s, (1, 1, 1)) for s in (stride_q, stride_kv))
+    params = {}
+    for s in "qkv":
+        params[f"pool_{s}.w"] = torch.randn((d, 1, 3, 3, 3), generator=g, device=cuda) / 5
+        params[f"norm_{s}.gamma"] = torch.rand(d, generator=g, device=cuda) + 0.5
+        params[f"norm_{s}.beta"] = torch.rand(d, generator=g, device=cuda) - 0.5
+    for axis, qs, ks in zip("thw", q, k):
+        params[f"rel_pos_{axis}"] = (torch.rand((2 * max(qs, ks) - 1, d), generator=g,
+                                                device=cuda) - 0.5) * 0.14
+    kw = dict(heads=heads, size=size, stride_q=stride_q, stride_kv=stride_kv, kernel=(3, 3, 3),
+              eps=1e-6)
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want, want_size = pa.pooled_attention(qkv, params, **kw)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    with torch.no_grad():
+        got, got_size = pa.pooled_attention(qkv.bfloat16(), params, **kw)
+    assert got_size == want_size == q
+    assert got.dtype == torch.bfloat16 and got.shape == (n, 1 + math.prod(q), c)
+    assert _rel(got.float(), want) < 2e-2

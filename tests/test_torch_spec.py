@@ -31,7 +31,7 @@ FIXTURES = Path(__file__).resolve().parent / "fixtures"
 
 # zoo entries the port has and the reference does not (held to
 # tests/reference_i3d.py by tests/test_torch_i3d.py)
-PORT_ONLY = {"i3d_rgb_kinetics", "video_swin_b_kinetics"}
+PORT_ONLY = {"i3d_rgb_kinetics", "video_swin_b_kinetics", "mvit_v2_b_kinetics"}
 
 
 def test_registry_names_match_the_reference():

@@ -506,9 +506,11 @@ def test_layer_matches_jax(case):
 # (held to tests/reference_i3d.py by tests/test_torch_i3d.py), the
 # space-to-depth its optimized stem reads (tests/test_torch_i3d.py too) and
 # Video Swin's token layers (held to tests/reference_video_swin.py by
-# tests/test_torch_video_swin.py)
+# tests/test_torch_video_swin.py) and MViTv2's (held to tests/reference_mvit.py
+# by tests/test_torch_mvit.py)
 PORT_ONLY = {"input_transform", "space_to_depth", "layer_norm", "gelu", "window_pad",
-             "window_attention", "patch_merging"}
+             "window_attention", "patch_merging", "cls_token", "pooled_attention",
+             "token_pool", "cls_select"}
 
 
 def test_every_reference_layer_has_an_equivalent():
