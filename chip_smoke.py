@@ -6,7 +6,7 @@
 Phases (every failure raises; the exit code is then non-zero):
 
 1. The card's name and power limit (nvidia-smi), and the build of the CUDA
-   kernels ``eco_tpu_torch/csrc/{preprocess,poolfuse,qconv,pool,s2d,window_attn}.cu``,
+   kernels ``eco_tpu_torch/csrc/{preprocess,poolfuse,qconv,pool,s2d,window_attn,qkv_pool}.cu``,
    one nvcc each, started together.
 2. K1 against its plain PyTorch version on the card at the serving shape
    (8, 16, 256, 340, 3) uint8, random in-range offsets and mirrors, from the
@@ -85,7 +85,20 @@ Phases (every failure raises; the exit code is then non-zero):
    once a request, K6 once a block (24 a request), K2-K5 never, no
    ``eco.window`` span and no library attention call in a profiled request,
    no shifted bias kept, the logits held to an f32 run.  ECO's and I3D's
-   requests launch K6 0 times.
+   requests launch K6 0 times.  Then MViTv2-B: K7, the q/k/v pooling,
+   against its plain version (``pool_qkv_plain``: the same f32 sums and
+   norm in plain PyTorch) at each kind of block's geometry at 10 clips
+   (``MVIT_BLOCKS``) in bf16, and timed in CUDA graphs beside its bound
+   (``COUNTS["qkv_pool.bytes"]`` at 3.35 TB/s), the route it replaced
+   (``route_ms``: the layout copy, PyTorch's depthwise 3D conv, the concats
+   and the norms), the plain version (``plain_ms``) and PyTorch's depthwise
+   3D conv and layer norm alone on laid-out inputs (``library_ms``), by
+   block and over a request; and full-width MViTv2-B (32 frames, 224 crop)
+   at 2 clips served by the bf16 ``UInt8Server``: K1 once a request, K7
+   once a block (24 a request), K4 at the three skip pools, K2, K3, K5 and
+   K6 never, no depthwise conv in a profiled request, the logits held to
+   an f32 run (which takes the route).  ECO's, I3D's and Swin's requests
+   launch K7 0 times.
 10. int8 serving of ECO-Lite and of ECO-Full: ``quantize_for_serving`` of the
     optimized graph, calibrated on two batches of K1's f32 clips, served in
     bf16 by ``UInt8Server(int8_input=True)`` (K1 emits int8 into conv1): K1
@@ -245,7 +258,8 @@ from eco_tpu_torch.data import (
 from eco_tpu_torch.models import build_eco_lite, get_model
 from eco_tpu_torch.apps import serving
 from eco_tpu_torch.examples import quantized_serving
-from eco_tpu_torch.ops import (_build, attention, pool, poolfuse, poolk, preprocess, qconv,
+from eco_tpu_torch.ops import (_build, attention, pool, pooled_attention, poolfuse, poolk,
+                               preprocess, qconv,
                                resize, s2d)
 from eco_tpu_torch.ops.conv import conv_nd
 from eco_tpu_torch.parallel import (
@@ -341,6 +355,29 @@ SWIN_STAGES = {
     "stage3": ((16, 14, 14), 16, (4, 3, 3), 9),
     "stage4": ((16, 7, 7), 32, (4, 0, 0), 1),
 }
+# MViTv2-B's q/k/v pooling at the benchmark's 10 clips: each kind of block's
+# grid (T, H, W), heads (d 96), q's and k and v's strides, and how many of a
+# request's 24 blocks have it (K7 is held and timed at each; the card tests
+# and a CPU test, which holds it to the model, read it too); full-width
+# serving at 2 clips
+MVIT_MODEL, MVIT_FC, MVIT_FRAMES = "mvit_v2_b_kinetics", "head.projection", 32
+MVIT_MEAN = (114.75, 114.75, 114.75)
+MVIT_CLIPS, MVIT_SERVE_CLIPS, MVIT_HEAD_DIM = 10, 2, 96
+MVIT_BLOCKS = {
+    "blocks0-1": ((16, 56, 56), 1, (1, 1, 1), (1, 8, 8), 2),
+    "block2": ((16, 56, 56), 2, (1, 2, 2), (1, 4, 4), 1),
+    "blocks3-4": ((16, 28, 28), 2, (1, 1, 1), (1, 4, 4), 2),
+    "block5": ((16, 28, 28), 4, (1, 2, 2), (1, 2, 2), 1),
+    "blocks6-20": ((16, 14, 14), 4, (1, 1, 1), (1, 2, 2), 15),
+    "block21": ((16, 14, 14), 8, (1, 2, 2), (1, 1, 1), 1),
+    "blocks22-23": ((16, 7, 7), 8, (1, 1, 1), (1, 1, 1), 2),
+}
+# K7 against its plain version, both bf16 from the same f32 sums and norm:
+# the order of the sums differs, so a value now and then rounds to the next
+# bf16 step (2e-5 measured)
+K7_REL_L2_BOUND = 2e-4
+# full-width MViTv2-B's bf16 logits against f32 (24 blocks of random weights)
+MVIT_BF16_LOGITS_REL_L2_BOUND = 0.1
 # K6 against the route, both bf16 (each ~5e-3 off the route in f32)
 K6_REL_L2_BOUND = 1e-2
 # full-width Swin's bf16 logits against f32 (24 blocks of random weights)
@@ -731,11 +768,11 @@ def serve_float(dev, card: str, model: str, fc: str, reqs):
     if k4 != K4_PER_REQUEST[model] * len(reqs) or route:
         raise AssertionError(f"{model} serving launched K4 {k4} times and took the pool "
                              f"route {route} times for {len(reqs)} requests")
-    if COUNTS["s2d.launches"] or COUNTS["k6.launches"]:
-        raise AssertionError(f"{model} serving launched K5 {COUNTS['s2d.launches']} and K6 "
-                             f"{COUNTS['k6.launches']} times")
+    if COUNTS["s2d.launches"] or COUNTS["k6.launches"] or COUNTS["k7.launches"]:
+        raise AssertionError(f"{model} serving launched K5 {COUNTS['s2d.launches']}, K6 "
+                             f"{COUNTS['k6.launches']} and K7 {COUNTS['k7.launches']} times")
     print(f"{model} serving: K4 {k4} launches, {k4 / len(reqs):g} a request; "
-          f"the pool route none; K5 and K6 none")
+          f"the pool route none; K5, K6 and K7 none")
     print(f"{model} serving: {len(reqs)} requests ({BATCH} videos each), K1 launches "
           f"{launches[0]}; peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
           f"{card}")
@@ -762,7 +799,8 @@ def serve_float(dev, card: str, model: str, fc: str, reqs):
 
 def _reset_counts():
     for k in ("k1.launches", "k2.launches", "k3.launches", "k4.launches", "k4.launches.3d",
-              "pool.route", "pool.bytes", "s2d.launches", "k6.launches"):
+              "pool.route", "pool.bytes", "s2d.launches", "k6.launches", "k7.launches",
+              "qkv_pool.bytes"):
         COUNTS[k] = 0
 
 
@@ -842,8 +880,9 @@ def serve_i3d(dev, card: str) -> dict:
     k5 = COUNTS["s2d.launches"]
     want = (len(reqs), 0, 0, pools * len(reqs), _i3d_pools(path3d=True) * len(reqs), 0,
             len(reqs))
-    if COUNTS["k6.launches"]:
-        raise AssertionError(f"{I3D_MODEL} serving launched K6 {COUNTS['k6.launches']} times")
+    if COUNTS["k6.launches"] or COUNTS["k7.launches"]:
+        raise AssertionError(f"{I3D_MODEL} serving launched K6 {COUNTS['k6.launches']} and K7 "
+                             f"{COUNTS['k7.launches']} times")
     if pools != _i3d_pools() or (k1, k2, k3, k4, k4_3d, route, k5) != want:
         raise AssertionError(f"{I3D_MODEL} serving launched K1, K2, K3, K4, K4 in 3D "
                              f"{(k1, k2, k3, k4, k4_3d)} times, took the pool route "
@@ -1044,10 +1083,12 @@ def serve_swin(dev, card: str) -> dict:
     outs = [server(frames, **aug).float() for frames, aug in reqs]
     k1, k2, k3 = _counts()
     k4, route = _pool_counts()
-    got = (k1, k2, k3, k4, route, COUNTS["s2d.launches"], COUNTS["k6.launches"])
-    if blocks != 24 or got != (len(reqs), 0, 0, 0, 0, 0, blocks * len(reqs)):
+    got = (k1, k2, k3, k4, route, COUNTS["s2d.launches"], COUNTS["k7.launches"],
+           COUNTS["k6.launches"])
+    if blocks != 24 or got != (len(reqs), 0, 0, 0, 0, 0, 0, blocks * len(reqs)):
         raise AssertionError(f"{SWIN_MODEL} serving launched K1, K2, K3, K4, the pool route, "
-                             f"K5, K6 {got} times for {len(reqs)} requests of {blocks} blocks")
+                             f"K5, K7, K6 {got} times for {len(reqs)} requests of {blocks} "
+                             f"blocks")
     for probs in outs:
         worst = (probs.sum(-1) - 1).abs().max().item()
         if tuple(probs.shape) != (n, NUM_CLASSES) or not torch.isfinite(probs).all() \
@@ -1081,6 +1122,174 @@ def serve_swin(dev, card: str) -> dict:
     if not rel <= SWIN_BF16_LOGITS_REL_L2_BOUND:
         raise AssertionError(f"{SWIN_MODEL} bf16 logits off f32 by rel L2 {rel}")
     return {"k1": k1, "k6": got[-1]}
+
+
+def _mvit_pool_case(dev, gen, size, heads, clips=MVIT_CLIPS, d=MVIT_HEAD_DIM):
+    """Seeded qkv rows (f32) and a pooled attention's pooling params."""
+    qkv = torch.randn((clips, 1 + math.prod(size), 3 * heads * d), device=dev, generator=gen)
+    params = {}
+    for s in "qkv":
+        params[f"pool_{s}.w"] = torch.randn((d, 1, 3, 3, 3), device=dev, generator=gen) / 5
+        params[f"norm_{s}.gamma"] = torch.rand(d, device=dev, generator=gen) + 0.5
+        params[f"norm_{s}.beta"] = torch.rand(d, device=dev, generator=gen) - 0.5
+    return qkv, params
+
+
+def _library_pool(qkv, params, heads, size, stride_q, stride_kv, eps=1e-6):
+    """PyTorch's depthwise 3D conv and layer norm alone, the yardstick of
+    K7: the qkv grid laid out as (3, N, C, T, H, W) and each conv's output
+    as rows beforehand, so that the returned call runs the three convs and
+    the three norms and nothing else."""
+    n, _, c3 = qkv.shape
+    c, d = c3 // 3, c3 // 3 // heads
+    grid = qkv[:, 1:].unflatten(2, (3, c)).permute(2, 0, 3, 1).contiguous().view(3, n, c, *size)
+    ws = [params[f"pool_{s}.w"].to(qkv.dtype).repeat(heads, 1, 1, 1, 1) for s in "qkv"]
+    gb = [(params[f"norm_{s}.gamma"].to(qkv.dtype), params[f"norm_{s}.beta"].to(qkv.dtype))
+          for s in "qkv"]
+    strides = (stride_q, stride_kv, stride_kv)
+    rows = [torch.randn((n, 1 + math.prod(pooled_attention.pooled_size(size, (3, 3, 3), st,
+                                                                      (1, 1, 1))), heads, d),
+                        device=qkv.device, dtype=qkv.dtype) for st in strides]
+
+    def call():
+        for i in range(3):
+            torch.nn.functional.conv3d(grid[i], ws[i], None, strides[i], 1, 1, c)
+            torch.nn.functional.layer_norm(rows[i], (d,), *gb[i], eps)
+    return call
+
+
+def check_qkv_pool_kernel(dev, card: str) -> dict:
+    """K7 against its plain version at each kind of MViTv2-B block
+    (``MVIT_BLOCKS``) at MVIT_CLIPS clips in bf16: one launch, the same
+    grids, within K7_REL_L2_BOUND of the plain version.  Then K7, the route (``route_ms``), the plain version
+    (``plain_ms``) and PyTorch's depthwise conv and layer norm alone
+    (``library_ms``) timed in CUDA graphs, in turns, beside K7's bound
+    (``qkv_pool.bytes`` at 3.35 TB/s).  Returns the times by block and
+    summed over a request's 24 blocks."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    rows, request = {}, {"ms": 0.0, "bound_ms": 0.0, "route_ms": 0.0, "plain_ms": 0.0,
+                         "library_ms": 0.0, "bytes": 0}
+    with torch.no_grad():
+        for name, (size, heads, stride_q, stride_kv, blocks) in MVIT_BLOCKS.items():
+            qkv32, params = _mvit_pool_case(dev, gen, size, heads)
+            qkv = qkv32.bfloat16()
+            del qkv32
+            kw = dict(heads=heads, size=size, stride_q=stride_q, stride_kv=stride_kv,
+                      kernel=(3, 3, 3), eps=1e-6)
+            before = COUNTS.copy()
+            got = pooled_attention.pool_qkv(qkv, params, **kw)
+            torch.cuda.synchronize()
+            launched = COUNTS["k7.launches"] - before["k7.launches"]
+            moved = COUNTS["qkv_pool.bytes"] - before["qkv_pool.bytes"]
+            plain = pooled_attention.pool_qkv_plain(qkv, params, **kw)
+            route = pooled_attention.pool_qkv_route(qkv, params, **kw)
+            errs = [_rel_l2(a, b) for a, b in zip(got[:3], plain[:3])]
+            route_errs = [_rel_l2(a, b) for a, b in zip(route[:3], plain[:3])]
+            print(f"K7 {name} ({MVIT_CLIPS}, {size}, {heads} heads, q {stride_q}, kv "
+                  f"{stride_kv}) bf16: rel L2 of q, k, v against the plain version "
+                  f"{', '.join(f'{e:.2e}' for e in errs)} (bound {K7_REL_L2_BOUND}); the "
+                  f"route's {', '.join(f'{e:.2e}' for e in route_errs)}")
+            if launched != 1 or got[3:] != plain[3:] or max(errs) > K7_REL_L2_BOUND:
+                raise AssertionError(f"K7 at {name}: {launched} launches, grids {got[3:]} "
+                                     f"against {plain[3:]}, rel L2 {errs}")
+            del got, plain, route
+            times = _in_turns({
+                "ms": lambda: pooled_attention.pool_qkv(qkv, params, **kw),
+                "route_ms": lambda: pooled_attention.pool_qkv_route(qkv, params, **kw),
+                "plain_ms": lambda: pooled_attention.pool_qkv_plain(qkv, params, **kw),
+                "library_ms": _library_pool(qkv, params, heads, size, stride_q, stride_kv)})
+            bound, _ = _bound_ms(moved)
+            row = {k: t["ms"] for k, t in times.items()}
+            row.update(bound_ms=bound, bytes=moved, blocks=blocks)
+            rows[name] = row
+            for k in request:
+                request[k] += blocks * row[k]
+            print(f"K7 {name}, CUDA graphs of {STEM_GRAPH_CALLS} calls: {row['ms']:.4f} ms "
+                  f"({', '.join(f'{v:.4f}' for v in times['ms']['runs'])}), bound "
+                  f"{bound:.4f} ms (bytes), at {bound / row['ms']:.1%} of it; the route "
+                  f"{row['route_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, depthwise conv + "
+                  f"layer norm {row['library_ms']:.4f} ms; {card}")
+            del qkv
+    print(f"K7 over an MViTv2-B request of {MVIT_CLIPS} clips (24 blocks, "
+          f"{request['bytes']:,} B): {request['ms']:.3f} ms against a bound of "
+          f"{request['bound_ms']:.3f} ms ({request['bound_ms'] / request['ms']:.1%}); the "
+          f"route {request['route_ms']:.3f} ms, plain {request['plain_ms']:.3f} ms, depthwise "
+          f"conv + layer norm {request['library_ms']:.3f} ms; {card}")
+    return {"by_block": rows, "request": request}
+
+
+def serve_mvit(dev, card: str) -> dict:
+    """Full-width MViTv2-B (400 classes, 32 frames, 224 crop) at
+    MVIT_SERVE_CLIPS clips with seeded random weights, optimized for
+    inference, served by the bf16 ``UInt8Server`` with mean 114.75:
+    REQUESTS requests, K1 once a request, K7 once a block (24 a request), K4
+    once a skip pool (3 a request) with no pool on the route, K2, K3, K5 and
+    K6 never; one more request under the profiler runs no depthwise conv.
+    The bf16 logits are held to an f32 run of the same server (TF32 off),
+    which takes the route.  Returns K1's, K4's and K7's launches."""
+    t0 = time.perf_counter()
+    graph = get_model(MVIT_MODEL, batch=MVIT_SERVE_CLIPS, num_frames=MVIT_FRAMES, crop_size=CROP)
+    params, state = Program(graph, device=dev).init(
+        torch.Generator().manual_seed(SEED), {"data": graph.inputs["data"]})
+    g_opt, p_opt, s_opt = optimize_for_inference(graph, params, state)
+    blocks = sum(layer.type == "pooled_attention" for layer in g_opt.layers)
+    skips = sum(layer.type == "token_pool" for layer in g_opt.layers)
+    server = UInt8Server(Program(g_opt, device=dev), p_opt, s_opt, crop=CROP, mean=MVIT_MEAN)
+    torch.cuda.synchronize()
+    print(f"{MVIT_MODEL} setup: {len(server.program.exec_layers)} layers after optimize "
+          f"({blocks} pooled attention blocks, {skips} skip pools), "
+          f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator().manual_seed(SEED + 9)
+    n = MVIT_SERVE_CLIPS
+    reqs = [(torch.randint(0, 256, (n, MVIT_FRAMES, HEIGHT, WIDTH, 3), dtype=torch.uint8,
+                           generator=gen).pin_memory(),
+             dict(h_off=torch.randint(0, HEIGHT - CROP + 1, (n,), generator=gen),
+                  w_off=torch.randint(0, WIDTH - CROP + 1, (n,), generator=gen),
+                  mirror=torch.randint(0, 2, (n,), generator=gen).bool()))
+            for _ in range(REQUESTS)]
+    _reset_counts()
+    with torch.no_grad():
+        outs = [server(frames, **aug).float() for frames, aug in reqs]
+    k1, k2, k3 = _counts()
+    k4, route = _pool_counts()
+    got = (k1, k2, k3, k4, route, COUNTS["s2d.launches"], COUNTS["k6.launches"],
+           COUNTS["k7.launches"])
+    want = (len(reqs), 0, 0, skips * len(reqs), 0, 0, 0, blocks * len(reqs))
+    if (blocks, skips) != (24, 3) or got != want:
+        raise AssertionError(f"{MVIT_MODEL} serving launched K1, K2, K3, K4, the pool route, "
+                             f"K5, K6, K7 {got} times for {len(reqs)} requests of {blocks} "
+                             f"blocks and {skips} skip pools")
+    for probs in outs:
+        worst = (probs.sum(-1) - 1).abs().max().item()
+        if tuple(probs.shape) != (n, NUM_CLASSES) or not torch.isfinite(probs).all() \
+                or worst > PROBS_SUM_TOL:
+            raise AssertionError(f"{MVIT_MODEL} probabilities {tuple(probs.shape)}, rows sum "
+                                 f"to 1 +- {worst}")
+    with torch.no_grad(), torch.profiler.profile() as prof:
+        server(reqs[0][0], **reqs[0][1])
+        torch.cuda.synchronize()
+    kernels = {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA}
+    if any("conv_depthwise3d" in k for k in kernels) or \
+            not any("qkv_pool_kernel" in k for k in kernels):
+        raise AssertionError(f"{MVIT_MODEL} request's kernels: {sorted(kernels)}")
+    print(f"{MVIT_MODEL} serving: {len(reqs)} requests ({n} clips of {MVIT_FRAMES} frames), "
+          f"K1 {k1}, K7 {got[-1]} ({blocks} a request), K4 {k4} ({skips} a request), K2, K3, "
+          f"K5, K6 none; a profiled request: no depthwise conv; peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; {card}")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    frames, aug = reqs[1]
+    with torch.no_grad():
+        logits32 = UInt8Server(Program(g_opt, compute_dtype=torch.float32, device=dev), p_opt,
+                               s_opt, crop=CROP, mean=MVIT_MEAN, output=MVIT_FC)(frames, **aug)
+        logits16 = UInt8Server(Program(g_opt, device=dev), p_opt, s_opt, crop=CROP,
+                               mean=MVIT_MEAN, output=MVIT_FC)(frames, **aug)
+    rel = _rel_l2(logits16, logits32)
+    print(f"{MVIT_MODEL} logits bf16 (K7) vs f32 (the route; TF32 off): rel L2 {rel:.6f} "
+          f"(bound {MVIT_BF16_LOGITS_REL_L2_BOUND})")
+    if not rel <= MVIT_BF16_LOGITS_REL_L2_BOUND:
+        raise AssertionError(f"{MVIT_MODEL} bf16 logits off f32 by rel L2 {rel}")
+    return {"k1": k1, "k4": k4, "k7": got[-1]}
 
 
 def _in_turns(fns: dict) -> dict:
@@ -3464,14 +3673,16 @@ def main() -> None:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    _build.build_all(["preprocess", "poolfuse", "qconv", "pool", "s2d", "window_attn"])
+    _build.build_all(["preprocess", "poolfuse", "qconv", "pool", "s2d", "window_attn",
+                      "qkv_pool"])
     preprocess.build_kernel()
     poolfuse.build_kernel()
     qconv.build_kernel()
     poolk.build_kernel()
     s2d.build_kernel()
     attention.build_kernel()
-    print(f"K1-K6 build (six nvcc together) and load: "
+    pooled_attention.build_kernel()
+    print(f"K1-K7 build (seven nvcc together) and load: "
           f"{time.perf_counter() - t0:.2f} s")
 
     checked = check_kernel(dev, card)
@@ -3496,6 +3707,8 @@ def main() -> None:
     s2d_checked = check_s2d_kernel(dev, card, i3d["s2d_layer"])
     k6_checked = check_window_kernel(dev, card)
     swin = serve_swin(dev, card)
+    k7_checked = check_qkv_pool_kernel(dev, card)
+    mvit = serve_mvit(dev, card)
     k1_int8_lite, k3_int8_lite, server, int8_lite = serve_int8(
         dev, card, "eco_lite_kinetics", "fc8", lite + (lite_logits16,), reqs)
     timed = {}
@@ -3523,13 +3736,15 @@ def main() -> None:
             raise AssertionError(f"the port imported {name}")
     k1_paths = {"serve": k1_serve, "train": k1_train, "test": k1_test,
                 "serve_full": k1_full, "serve_i3d": i3d["k1"], "serve_swin": swin["k1"],
+                "serve_mvit": mvit["k1"],
                 "serve_int8_lite": k1_int8_lite, "serve_int8_full": k1_int8_full,
                 **online_counts["k1"], **k1_e2e, "remat": remat["k1"], **cli_counts["k1"],
                 **tail["k1"], **parallel["k1"], **probe["k1"]}
     # the paths that read K2's count; each checks it is 0, since K4 takes its pools
     k2_paths = {"serve": k2_serve, "train": k2_train, "test": k2_test, "serve_full": k2_full,
                 "serve_i3d": i3d["k2"]}
-    k4_paths = {"serve": k4_serve, "serve_full": k4_full, "serve_i3d": i3d["k4"]}
+    k4_paths = {"serve": k4_serve, "serve_full": k4_full, "serve_i3d": i3d["k4"],
+                "serve_mvit": mvit["k4"]}
     k3_paths = {"serve_int8_lite": k3_int8_lite, "serve_int8_full": k3_int8_full,
                 **online_counts["k3"], **cli_counts["k3"], **examples["k3"], **probe["k3"]}
     records = [
@@ -3600,6 +3815,20 @@ def main() -> None:
                                  "serve_swin": swin["k6"]},
             "launches_per_request": {"serve_swin": swin["k6"] / REQUESTS},
             **k6_checked,
+        },
+        {
+            "name": "qkv_pool",
+            "route": "cuda",
+            "source": "eco_tpu_torch/csrc/qkv_pool.cu",
+            "replaces": "none: ops/pooled_attention.py's route on the card (layout copy, "
+                        "depthwise 3D convs, class-token concats, layer norms)",
+            "launches": mvit["k7"],
+            # serve_float, serve_i3d and serve_swin raise unless their requests
+            # launched K7 0 times
+            "launches_by_path": {"serve": 0, "serve_full": 0, "serve_i3d": 0, "serve_swin": 0,
+                                 "serve_mvit": mvit["k7"]},
+            "launches_per_request": {"serve_mvit": mvit["k7"] / REQUESTS},
+            **k7_checked,
         },
     ]
     print(json.dumps({"kernels": records}))

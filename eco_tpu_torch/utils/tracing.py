@@ -18,7 +18,8 @@
   ``ops/preprocess.py``, ``ops/poolfuse.py``, ``ops/qconv.py`` and
   ``ops/poolk.py``), ``k4.launches.3d`` (those of K4's 3D path),
   ``s2d.launches`` (those of K5, ``ops/s2d.py``), ``k6.launches`` (those of
-  K6, the window attention of ``ops/attention.py``),
+  K6, the window attention of ``ops/attention.py``), ``k7.launches`` (those
+  of K7, the q/k/v pooling of ``ops/pooled_attention.py``),
   ``pool.route`` (float pools on the card that took
   ``ops/pool.py``'s padded route instead of K4), ``pool.bytes`` (the least
   bytes of every ``ops/pool.py:pool_nd`` call: input read once, output
@@ -32,8 +33,12 @@
   weights times v and of the three relative-position products; its least
   bytes: q, k and v read once, the output written once, the position
   tables read once; and the bytes of position columns the route writes for
-  the library's kernel; host arithmetic on shapes).  Take a difference
-  around the stretch of interest.
+  the library's kernel; host arithmetic on shapes), ``qkv_pool.bytes``
+  (every q/k/v pooling of ``ops/pooled_attention.py:pool_qkv``, K7 or the
+  route: for each of q, k and v, each qkv row some window reads and the
+  class token's row read once, each output row written once; host
+  arithmetic on shapes).  Take a difference around the stretch of
+  interest.
 
 The spans of the program: ``eco.serve`` and ``eco.serve.h2d``
 (``apps/serving.py``), ``eco.k1`` (``ops/preprocess.py``), ``eco.apply``
@@ -44,8 +49,8 @@ Video Swin's ``eco.window`` (each pad, shift and partition copy and each
 reverse, unshift and crop copy of the windowed attention's route; K6 makes
 none) and ``eco.attn`` (its attention core: K6's launch or the route's
 library call), in ``ops/attention.py``, and MViTv2's ``eco.qkv_pool`` (the
-pooling of q, k and v: the layout copy, the three depthwise convs, the
-class token's concats and the three norms) and ``eco.pattn`` (the core:
+pooling of q, k and v: K7's launch, or the route's layout copy, three
+depthwise convs, class token's concats and three norms) and ``eco.pattn`` (the core:
 the position columns, the attention, the residual pooling add and the
 merge), in ``ops/pooled_attention.py``.
 """

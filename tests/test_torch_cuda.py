@@ -1,4 +1,4 @@
-"""eco_tpu_torch on a CUDA device: the hand-written kernels (K1-K6)
+"""eco_tpu_torch on a CUDA device: the hand-written kernels (K1-K7)
 against their plain versions, the serving path and a train step on the
 card against the same on the CPU, and the world-1 NCCL data-parallel step
 against the plain one.
@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import I3D_POOLS, K4_FRAMES, K4_POOLS
+from chip_smoke import I3D_POOLS, K4_FRAMES, K4_POOLS, MVIT_BLOCKS, MVIT_CLIPS
 from eco_tpu_torch.apps import RawPreprocessProgram, UInt8Server
 from eco_tpu_torch.data import prefetch_to_device
 from eco_tpu_torch.convert import optimize_for_inference, quantize_for_serving
@@ -1422,8 +1422,8 @@ def test_bf16_mvit_serving_against_the_f32_reference(cuda):
     """The bf16 program through ``UInt8Server`` on the card: within 0.1 of
     the f32 reference's logits (bf16 over 4 blocks of random weights, and
     the bf16 clips' rounding of x - 114.75); every core counted, the skip
-    pools on K4, the pooling convs on PyTorch's depthwise 3D kernel (not
-    cuDNN's channels-last path, which converts the layout)."""
+    pools on K4, the q/k/v pooling on K7 (once a block: no depthwise conv,
+    no layout conversion)."""
     graph, params, raw, aug, want = _mvit_case(cuda)
     g, p, s = optimize_for_inference(graph, params, {})
     server = UInt8Server(Program(g, compute_dtype=torch.bfloat16, device=cuda), p, s, crop=64,
@@ -1435,8 +1435,10 @@ def test_bf16_mvit_serving_against_the_f32_reference(cuda):
     counts = COUNTS - before
     assert got.dtype == torch.bfloat16
     assert counts["pattn.flops"] > 0 and counts["k4.launches"] == 2 and not counts["pool.route"]
+    assert counts["k7.launches"] == 4
     kernels = {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA}
-    assert any("conv_depthwise3d" in k for k in kernels), sorted(kernels)
+    assert any("qkv_pool_kernel" in k for k in kernels), sorted(kernels)
+    assert not any("conv_depthwise3d" in k for k in kernels), sorted(kernels)
     assert not any("tensorTransform" in k for k in kernels), sorted(kernels)
     assert _rel(got.float().cpu(), want.cpu()) < 0.1
 
@@ -1500,3 +1502,155 @@ def test_pooled_attention_bf16_on_the_card_against_f32(cuda, heads, size, stride
     assert got_size == want_size == q
     assert got.dtype == torch.bfloat16 and got.shape == (n, 1 + math.prod(q), c)
     assert _rel(got.float(), want) < 2e-2
+
+
+# -- K7: MViTv2's q/k/v pooling ------------------------------------------------------
+
+
+def _k7_case(dev, size, heads, d=96, n=MVIT_CLIPS, seed=7, dtype=torch.bfloat16):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn((n, 1 + math.prod(size), 3 * heads * d), generator=g, device=dev)
+    params = {}
+    for s in "qkv":
+        params[f"pool_{s}.w"] = torch.randn((d, 1, 3, 3, 3), generator=g, device=dev) / 5
+        params[f"norm_{s}.gamma"] = torch.rand(d, generator=g, device=dev) + 0.5
+        params[f"norm_{s}.beta"] = torch.rand(d, generator=g, device=dev) - 0.5
+    return qkv.to(dtype), params
+
+
+def _k7_against_its_plain_version(qkv, params, **kw):
+    """K7 once, against its plain version on the same rows: the same grids,
+    within 2e-4 in relative L2 (both sum and norm in f32 and round once; the
+    order of the sums differs, so a value now and then rounds to the next
+    bf16 or f16 step), the same ``qkv_pool.bytes`` as the route counts; the
+    route within 1e-2 of the plain version (it rounds the conv's output and
+    gamma and beta to the rows' type)."""
+    from eco_tpu_torch.ops import pooled_attention as pa
+
+    before = COUNTS.copy()
+    with torch.no_grad():
+        got = pa.pool_qkv(qkv, params, **kw)
+        torch.cuda.synchronize()
+        counted = {k: COUNTS[k] - before[k] for k in ("k7.launches", "qkv_pool.bytes")}
+        plain = pa.pool_qkv_plain(qkv, params, **kw)
+        before = COUNTS["qkv_pool.bytes"]
+        route = pa.pool_qkv(qkv.float(), params, **kw)  # f32 takes the route
+    assert counted["k7.launches"] == 1
+    assert counted["qkv_pool.bytes"] == 2 * (COUNTS["qkv_pool.bytes"] - before) // 4
+    assert got[3:] == plain[3:]
+    for mine, want, lib in zip(got[:3], plain[:3], route[:3]):
+        assert mine.dtype == qkv.dtype and mine.shape == want.shape
+        assert _rel(mine.float(), want.float()) < 2e-4
+        assert _rel(lib.float(), want.float()) < 1e-2
+    return got
+
+
+@pytest.mark.parametrize("block", sorted(MVIT_BLOCKS))
+def test_k7_equals_its_plain_version_at_mvit_b_blocks(cuda, block):
+    """K7 in bf16 at each kind of MViTv2-B block (every one of the 24 is one
+    of these: ``chip_smoke.MVIT_BLOCKS``), 10 clips, d 96."""
+    size, heads, stride_q, stride_kv, _ = MVIT_BLOCKS[block]
+    qkv, params = _k7_case(cuda, size, heads)
+    _k7_against_its_plain_version(qkv, params, heads=heads, size=size, stride_q=stride_q,
+                                  stride_kv=stride_kv, kernel=(3, 3, 3), eps=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+@pytest.mark.parametrize("case", ["odd", "long_t", "narrow", "one_frame"])
+def test_k7_odd_grids_stretches_of_t_and_narrow_heads(cuda, case, dtype):
+    """K7 at odd grids (tiles cut by the grid's edge), a T that the host
+    splits into stretches with a short last one (17 frames, few tiles), a
+    head of 16 channels and a clip of one frame, in bf16 and f16."""
+    size, heads, d, stride_q, stride_kv = {
+        "odd": ((3, 9, 11), 2, 96, (1, 2, 2), (1, 8, 8)),
+        "long_t": ((17, 9, 11), 2, 96, (1, 1, 1), (1, 4, 4)),
+        "narrow": ((4, 13, 6), 3, 16, (1, 1, 1), (1, 2, 2)),
+        "one_frame": ((1, 15, 15), 1, 96, (1, 2, 2), (1, 4, 4)),
+    }[case]
+    qkv, params = _k7_case(cuda, size, heads, d=d, n=3, dtype=dtype)
+    _k7_against_its_plain_version(qkv, params, heads=heads, size=size, stride_q=stride_q,
+                                  stride_kv=stride_kv, kernel=(3, 3, 3), eps=1e-6)
+
+
+@pytest.mark.parametrize("case", ["f32", "grad", "kernel_133", "stride_3", "head_width_104"])
+def test_k7_leaves_what_it_does_not_take_to_the_route(cuda, case):
+    """f32 rows, a gradient, another kernel, another stride and a head wider
+    than K7's take the route: no K7 launch, the route's result."""
+    from eco_tpu_torch.ops import pooled_attention as pa
+
+    heads, size, d = 2, (4, 14, 14), 104 if case == "head_width_104" else 96
+    qkv, params = _k7_case(cuda, size, heads, d=d, n=2,
+                           dtype=torch.float32 if case == "f32" else torch.bfloat16)
+    kw = dict(heads=heads, size=size, stride_q=(1, 2, 2), stride_kv=(1, 4, 4), kernel=(3, 3, 3),
+              eps=1e-6)
+    if case == "kernel_133":
+        kw["kernel"] = (1, 3, 3)
+        for s in "qkv":
+            params[f"pool_{s}.w"] = params[f"pool_{s}.w"][:, :, 1:2].contiguous()
+    if case == "stride_3":
+        kw["stride_kv"] = (1, 3, 3)
+    if case == "grad":
+        qkv.requires_grad_(True)
+    before = COUNTS["k7.launches"]
+    got = pa.pool_qkv(qkv, params, **kw)
+    torch.cuda.synchronize()
+    want = pa.pool_qkv_route(qkv, params, **kw)
+    assert COUNTS["k7.launches"] == before
+    assert all(torch.equal(a, b) for a, b in zip(got[:3], want[:3]))
+
+
+def test_k7_entry_refuses_a_geometry_it_does_not_take(cuda):
+    """The C entry point launches nothing and returns cudaErrorInvalidValue
+    (1) for a head wider than 96, a width not a multiple of 8, a stride it
+    is not built for and a misaligned pointer."""
+    from eco_tpu_torch.ops import pooled_attention as pa
+
+    size, heads = (4, 14, 14), 2
+    qkv, params = _k7_case(cuda, size, heads, n=2)
+    out = torch.zeros((3, 2, 1 + math.prod(size), heads, 96), dtype=torch.bfloat16, device=cuda)
+    ptrs = [params[f"{k}_{s}.{p}"].data_ptr() for k, p in (("pool", "w"), ("norm", "gamma"),
+                                                          ("norm", "beta")) for s in "qkv"]
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    ok = (2, *size, heads, 96, 1, 2)
+    call = lambda q, args: pa._kernel()(q, *ptrs, *(o.data_ptr() for o in out), *args, 1e-6, 1,
+                                       stream)
+    assert call(qkv.data_ptr(), ok) == 0
+    torch.cuda.synchronize()
+    for args in (ok[:5] + (104,) + ok[6:],       # wider than K7's head
+                 ok[:5] + (44,) + ok[6:],        # not a multiple of 8
+                 ok[:7] + (3,)):                 # a stride K7 is not built for
+        assert call(qkv.data_ptr(), args) == 1
+    assert call(qkv.data_ptr() + 2, ok) == 1
+    torch.cuda.synchronize()
+
+
+def test_k7_in_serving_requests(cuda):
+    """A bf16 request of the published MViTv2-B (one clip of 32 x 224 x 224)
+    launches K7 once a block, 24 times; an ECO-Lite, an I3D and a Video Swin
+    request launch it 0 times."""
+    def launches(graph, crop, frames, mean, fc, state=None):
+        params, state = Program(graph, device="cpu").init(torch.Generator().manual_seed(0),
+                                                          {"data": graph.inputs["data"]})
+        g, p, s = optimize_for_inference(graph, params, state)
+        p = {ln: {k: v.to(cuda) for k, v in d.items()} for ln, d in p.items()}
+        s = {ln: {k: v.to(cuda) for k, v in d.items()} for ln, d in s.items()}
+        server = UInt8Server(Program(g, compute_dtype=torch.bfloat16, device=cuda), p, s,
+                             crop=crop, mean=mean, output=fc)
+        n = graph.inputs["data"][0]
+        raw = torch.randint(0, 256, (n, frames, crop + 16, crop + 20, 3), dtype=torch.uint8,
+                            device=cuda)
+        before = COUNTS["k7.launches"]
+        with torch.no_grad():
+            server(raw, h_off=[0] * n, w_off=[0] * n, mirror=[0] * n)
+        torch.cuda.synchronize()
+        return COUNTS["k7.launches"] - before
+
+    mvit = get_model("mvit_v2_b_kinetics", batch=1)
+    assert launches(mvit, 224, 32, MVIT_MEAN, "head.projection") == 24
+    lite = get_model("eco_lite_kinetics", batch=2, num_segments=4, crop_size=224)
+    assert launches(lite, 224, 4, MEAN, "fc8") == 0
+    i3d = get_model("i3d_rgb_kinetics", batch=1, num_frames=16, crop_size=224)
+    assert launches(i3d, 224, 16, (127.5,) * 3, "Conv3d_0c_1x1") == 0
+    swin = get_model("video_swin_b_kinetics", batch=1, num_frames=8, crop_size=64, embed_dim=32,
+                     depths=[2, 2, 2, 2], num_heads=[1, 2, 4, 8])
+    assert launches(swin, 64, 8, SWIN_MEAN, "cls_head.fc_cls") == 0

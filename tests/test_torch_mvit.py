@@ -24,6 +24,8 @@ the residual pooling and the skip's max pool with and without a width
 change.
 """
 
+import collections
+import functools
 import math
 import sys
 from pathlib import Path
@@ -369,6 +371,204 @@ def test_spans_and_counters_of_one_request():
     assert counts["pattn.bias_bytes"] == sum(h * (lq + lk) * w * 4
                                              for lq, lk, h, _, _, w in blocks)
     assert "attn.flops" not in counts
+
+
+# -- the q/k/v pooling: K7's plain version and the route --------------------------
+
+# q's and k and v's strides of the published blocks, each kind once
+POOL_STRIDES = [((1, 1, 1), (1, 8, 8)), ((1, 2, 2), (1, 4, 4)), ((1, 1, 1), (1, 4, 4)),
+                ((1, 2, 2), (1, 2, 2)), ((1, 1, 1), (1, 2, 2)), ((1, 2, 2), (1, 1, 1)),
+                ((1, 1, 1), (1, 1, 1))]
+POOL_KW = dict(kernel=(3, 3, 3), eps=1e-6)
+
+
+def _pool_case(heads, size, d=8, n=2, seed=9, dtype=torch.float32):
+    g = torch.Generator().manual_seed(seed)
+    qkv = torch.randn((n, 1 + math.prod(size), 3 * heads * d), generator=g).to(dtype)
+    params = {}
+    for s in "qkv":
+        params[f"pool_{s}.w"] = torch.randn((d, 1, 3, 3, 3), generator=g) / 5
+        params[f"norm_{s}.gamma"] = torch.rand(d, generator=g) + 0.5
+        params[f"norm_{s}.beta"] = torch.rand(d, generator=g) - 0.5
+    return qkv, params
+
+
+def _published_pool(qkv, params, heads, size, stride_q, stride_kv):
+    """The published ``attention_pool`` of q, k and v (``reference_mvit``):
+    (N, heads, L', d) each, and the grids."""
+    n, _, c3 = qkv.shape
+    d = c3 // 3 // heads
+    x = qkv.view(n, -1, 3, heads, d).permute(2, 0, 3, 1, 4)
+    out = []
+    for i, (s, stride) in enumerate(zip("qkv", (stride_q, stride_kv, stride_kv))):
+        conv = functools.partial(F.conv3d, weight=params[f"pool_{s}.w"], stride=stride,
+                                 padding=[1, 1, 1], groups=d)
+        norm = functools.partial(ref._norm, params, prefix=f"norm_{s}.")
+        out.append(ref.attention_pool(x[i], conv, list(size), True, norm))
+    return out
+
+
+@pytest.mark.parametrize("heads", [1, 2, 4])
+@pytest.mark.parametrize("size", [(2, 8, 16), (3, 9, 7)], ids=["even", "odd"])
+@pytest.mark.parametrize("stride_q,stride_kv", POOL_STRIDES,
+                         ids=[f"q{q[1]}kv{kv[1]}" for q, kv in POOL_STRIDES])
+def test_k7_plain_version_and_the_route_are_the_published_attention_pool(stride_q, stride_kv,
+                                                                         size, heads):
+    """In f32, K7's plain version and the route each within 1e-5 of the
+    published ``attention_pool`` of q, k and v and of each other, at every
+    published pair of strides, even and odd grids and 1, 2 or 4 heads; row
+    0 is the class token's row normed over d."""
+    qkv, params = _pool_case(heads, size)
+    kw = dict(heads=heads, size=size, stride_q=stride_q, stride_kv=stride_kv, **POOL_KW)
+    plain = pa.pool_qkv_plain(qkv, params, **kw)
+    route = pa.pool_qkv_route(qkv, params, **kw)
+    got = pa.pool_qkv(qkv, params, **kw)  # the CPU takes the route
+    want = _published_pool(qkv, params, heads, size, stride_q, stride_kv)
+    q_size, k_size = (pa.pooled_size(size, (3, 3, 3), s, (1, 1, 1)) for s in (stride_q, stride_kv))
+    assert plain[3:] == route[3:] == got[3:] == (q_size, k_size)
+    d = qkv.shape[-1] // 3 // heads
+    for i, s in enumerate("qkv"):
+        (w, w_size), grid = want[i], (q_size if s == "q" else k_size)
+        assert tuple(w_size) == grid
+        assert plain[i].shape == route[i].shape == (2, 1 + math.prod(grid), heads, d)
+        assert torch.equal(got[i], route[i])
+        for mine in (plain[i], route[i]):
+            assert (mine.transpose(1, 2) - w).abs().max() <= 1e-5
+        assert (plain[i] - route[i]).abs().max() <= 1e-5
+        cls = qkv[:, 0].view(2, 3, heads, d)[:, i]
+        row0 = F.layer_norm(cls, (d,), params[f"norm_{s}.gamma"], params[f"norm_{s}.beta"], 1e-6)
+        assert (plain[i][:, 0] - row0).abs().max() <= 1e-6
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+def test_k7_plain_version_rounds_once(dtype):
+    """K7's plain version sums and norms in f32 and rounds once: on bf16 or
+    f16 rows it is its f32 result on the same values, rounded."""
+    size, heads = (3, 9, 7), 2
+    qkv, params = _pool_case(heads, size, dtype=dtype)
+    kw = dict(heads=heads, size=size, stride_q=(1, 2, 2), stride_kv=(1, 8, 8), **POOL_KW)
+    low = pa.pool_qkv_plain(qkv, params, **kw)
+    f32 = pa.pool_qkv_plain(qkv.float(), params, **kw)
+    for a, b in zip(low[:3], f32[:3]):
+        assert a.dtype == dtype and torch.equal(a, b.to(dtype))
+
+
+def test_qkv_pool_bytes_by_hand():
+    """``qkv_pool.bytes`` of one call, by hand: 2 clips, grid (3, 9, 9), C 16
+    (2 heads of 8), f32; q at stride 1 reads every row, k and v at (1, 8,
+    8) read rows 0, 1, 7 and 8 along H and W and give a (3, 2, 2) grid."""
+    size, heads = (3, 9, 9), 2
+    qkv, params = _pool_case(heads, size)
+    before = COUNTS["qkv_pool.bytes"]
+    pa.pool_qkv(qkv, params, heads=heads, size=size, stride_q=(1, 1, 1), stride_kv=(1, 8, 8),
+                **POOL_KW)
+    q_rows = (243 + 1) + (243 + 1)          # read (grid and class token), written
+    kv_rows = (3 * 4 * 4 + 1) + (3 * 2 * 2 + 1)
+    assert COUNTS["qkv_pool.bytes"] - before == 2 * 16 * 4 * (q_rows + 2 * kv_rows)
+    # the bytes are the rows', whatever computes them: half in bf16
+    before = COUNTS["qkv_pool.bytes"]
+    pa.pool_qkv(qkv.bfloat16(), params, heads=heads, size=size, stride_q=(1, 1, 1),
+                stride_kv=(1, 8, 8), **POOL_KW)
+    assert COUNTS["qkv_pool.bytes"] - before == 2 * 16 * 2 * (q_rows + 2 * kv_rows)
+
+
+def _tapped(size, stride):
+    """Rows along an axis that some (3)-window of ``stride``, pad 1, reads."""
+    out = (size - 1) // stride + 1
+    return len({i * stride - 1 + k for i in range(out) for k in range(3)} & set(range(size)))
+
+
+def test_qkv_pool_bytes_at_the_published_size():
+    """A request of 10 MViTv2-B clips at 32 x 224 x 224 in bf16 counts
+    3,600,506,880 B, the sum over the 24 blocks of ``chip_smoke.py``'s table
+    by hand: for each of q, k and v, the rows some window reads and the
+    class token's, and the output rows and their class token's, at C
+    channels of 2 bytes."""
+    from chip_smoke import MVIT_BLOCKS, MVIT_CLIPS, MVIT_HEAD_DIM
+
+    g = get_model("mvit_v2_b_kinetics", batch=MVIT_CLIPS)
+    params, _ = Program(g, device="meta").init(torch.Generator().manual_seed(0),
+                                               {"data": g.inputs["data"]})
+    before = COUNTS["qkv_pool.bytes"]
+    with torch.no_grad():
+        Program(g, compute_dtype=torch.bfloat16, device="meta").apply(
+            params, {}, {"data": torch.empty(g.inputs["data"], device="meta")})
+    counted = COUNTS["qkv_pool.bytes"] - before
+    by_hand = 0
+    for size, heads, stride_q, stride_kv, blocks in MVIT_BLOCKS.values():
+        for stride in (stride_q, stride_kv, stride_kv):
+            read = math.prod(_tapped(n, s) for n, s in zip(size, stride))
+            out = math.prod((n - 1) // s + 1 for n, s in zip(size, stride))
+            by_hand += blocks * MVIT_CLIPS * heads * MVIT_HEAD_DIM * 2 * (read + 1 + out + 1)
+    assert counted == by_hand == 3_600_506_880
+
+
+def test_k7_blocks_table_is_the_models():
+    """``chip_smoke.py``'s MVIT_BLOCKS, which the card's checks of K7 read,
+    is the published graph's 24 pooled attentions, and K7 is built for
+    every one of them."""
+    from chip_smoke import MVIT_BLOCKS, MVIT_CLIPS, MVIT_HEAD_DIM
+
+    g = get_model("mvit_v2_b_kinetics", batch=MVIT_CLIPS)
+    attn = [l for l in g.layers if l.type == "pooled_attention"]
+    seen = collections.Counter(
+        (tuple(l.opt("size")), l.opt("heads"), tuple(l.opt("stride_q")), tuple(l.opt("stride_kv")))
+        for l in attn)
+    table = {(size, heads, q, kv): blocks for size, heads, q, kv, blocks in MVIT_BLOCKS.values()}
+    assert dict(seen) == table and sum(table.values()) == 24
+    for size, heads, q, kv in table:
+        shape = (MVIT_CLIPS, 1 + math.prod(size), 3 * heads * MVIT_HEAD_DIM)
+        assert pa.k7_fits(torch.bfloat16, shape, heads, size, q, kv, (3, 3, 3))
+
+
+@pytest.mark.parametrize("case,fits", [
+    ("bf16", True), ("f16", True), ("f32", False), ("kernel_133", False),
+    ("stride_t2", False), ("stride_3", False), ("stride_unequal", False), ("d_12", False),
+    ("d_104", False), ("rows_short", False)])
+def test_k7_is_built_for_the_published_geometries_alone(case, fits):
+    """What K7 takes: bf16 or f16 rows, a (3, 3, 3) kernel, strides (1, s, s)
+    for s in 1, 2, 4 and 8, d a multiple of 8 up to 96; anything else
+    takes the route."""
+    heads, size, q, kv, kernel, d, dtype = 2, (4, 14, 14), (1, 2, 2), (1, 4, 4), (3, 3, 3), 96, \
+        torch.bfloat16
+    rows = 1 + math.prod(size)
+    if case == "f16":
+        dtype = torch.float16
+    elif case == "f32":
+        dtype = torch.float32
+    elif case == "kernel_133":
+        kernel = (1, 3, 3)
+    elif case == "stride_t2":
+        q = (2, 2, 2)
+    elif case == "stride_3":
+        kv = (1, 3, 3)
+    elif case == "stride_unequal":
+        kv = (1, 4, 2)
+    elif case == "d_12":
+        d = 12
+    elif case == "d_104":
+        d = 104
+    elif case == "rows_short":
+        rows -= 1
+    assert pa.k7_fits(dtype, (2, rows, 3 * heads * d), heads, size, q, kv, kernel) is fits
+
+
+def test_rows_on_the_cpu_take_the_route(monkeypatch):
+    """bf16 rows that K7 fits, but on the CPU, take the route: K7 is never
+    built or launched, and the result is the route's."""
+    def no_kernel():
+        raise AssertionError("K7 reached on the CPU")
+
+    monkeypatch.setattr(pa, "_kernel", no_kernel)
+    size, heads = (3, 9, 7), 2
+    qkv, params = _pool_case(heads, size, dtype=torch.bfloat16)
+    kw = dict(heads=heads, size=size, stride_q=(1, 2, 2), stride_kv=(1, 4, 4), **POOL_KW)
+    assert pa.k7_fits(qkv.dtype, tuple(qkv.shape), heads, size, (1, 2, 2), (1, 4, 4), (3, 3, 3))
+    before = COUNTS["k7.launches"]
+    got = pa.pool_qkv(qkv, params, **kw)
+    want = pa.pool_qkv_route(qkv, params, **kw)
+    assert COUNTS["k7.launches"] == before
+    assert all(torch.equal(a, b) for a, b in zip(got[:3], want[:3]))
 
 
 # -- the input transform -----------------------------------------------------------
